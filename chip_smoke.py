@@ -1,0 +1,336 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # all phases; needs one CUDA card
+
+Phases, each printing its own line with seconds; the first failure raises
+and the script exits non-zero:
+  1. refuse to run without CUDA; print the card's name and power limit;
+  2. build every CUDA kernel of the sfm path from ops/csrc with nvcc;
+  3. hold each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it, and time both;
+  4. drive the main path, `metricsfm_tpu_torch.cli sfm`, on a rendered
+     8-view 1024x768 scene with 4096 keypoints per image, with every
+     kernel's launch count reset just before and read just after, and check
+     the reconstruction against the scene's ground truth;
+  5. print the kernel table, the card line and the result line.
+The last line of standard output is the result:
+  {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+
+def phase(name):
+    """Context manager printing one line per phase, with its seconds."""
+    class _P:
+        def __enter__(self):
+            self.t0 = time.perf_counter()
+            print(f"[phase] {name} ...", flush=True)
+            return self
+
+        def __exit__(self, et, ev, tb):
+            dt = time.perf_counter() - self.t0
+            status = "ok" if et is None else f"FAILED ({et.__name__}: {ev})"
+            print(f"[phase] {name} {status} in {dt:.3f} s", flush=True)
+            return False
+    return _P()
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def unit_store(rng, m, n, d=128):
+    import numpy as np
+    x = rng.normal(size=(m, n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def compare_knn2(store_np, mask_np, ii_np, jj_np, label):
+    """Kernel vs plain on the card; returns (max_abs_err, agreement)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    dev = torch.device("cuda")
+    store = torch.tensor(store_np, device=dev).to(torch.bfloat16)
+    mask = torch.tensor(mask_np, device=dev)
+    ii = torch.tensor(ii_np, dtype=torch.int32, device=dev)
+    jj = torch.tensor(jj_np, dtype=torch.int32, device=dev)
+    k1, k2, kidx = matching.knn2_gather(store, mask, ii, jj)
+    r1, r2, ridx = matching.knn2_reference(store, mask, ii, jj)
+    torch.cuda.synchronize()
+    k1, k2, kidx, r1, r2, ridx = (t.cpu().numpy() for t in
+                                  (k1, k2, kidx, r1, r2, ridx))
+    for name, a, b in (("d1_sq", k1, r1), ("d2_sq", k2, r2)):
+        if not np.array_equal(np.isinf(a), np.isinf(b)):
+            raise AssertionError(f"{label}: {name} inf pattern differs")
+    fin1, fin2 = np.isfinite(r1), np.isfinite(r2)
+    err = max(float(np.abs(k1[fin1] - r1[fin1]).max(initial=0.0)),
+              float(np.abs(k2[fin2] - r2[fin2]).max(initial=0.0)))
+    agree = float((kidx == ridx).mean())
+    # off exact ties (best and second within f32 summation noise) the
+    # indices must agree exactly
+    clear = (r2 - r1) > 2e-5
+    clear_agree = float((kidx == ridx)[clear].mean()) if clear.any() else 1.0
+    print(f"  knn2 {label}: shape {store_np.shape} B={len(ii_np)} "
+          f"max|d2 err|={err:.3g} idx agree={agree:.6f} "
+          f"(off ties {clear_agree:.6f})", flush=True)
+    if err > 1e-4:
+        raise AssertionError(f"{label}: distance error {err} > 1e-4")
+    if agree < 0.999 or clear_agree < 1.0:
+        raise AssertionError(f"{label}: index agreement {agree} / "
+                             f"{clear_agree}")
+    return err, agree
+
+
+def kernel_phase():
+    """Phase 3 for kernel 2a; returns its table row (without launches)."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    rng = np.random.default_rng(0)
+    # the verify batch of the main path: 32 pairs of 4096 x 128 out of an
+    # 8-image store (28 exhaustive pairs + 4 repeats), ~3% rows masked
+    store = unit_store(rng, 8, 4096)
+    mask = rng.uniform(size=(8, 4096)) > 0.03
+    pairs = list(itertools.combinations(range(8), 2))
+    pairs = pairs + pairs[:32 - len(pairs)]
+    ii = np.array([p[0] for p in pairs], np.int32)
+    jj = np.array([p[1] for p in pairs], np.int32)
+    err, _ = compare_knn2(store, mask, ii, jj, "B=32 N=4096")
+    errs = [err]
+    # ragged N (not a tile multiple)
+    s2 = unit_store(rng, 3, 1000)
+    m2 = rng.uniform(size=(3, 1000)) > 0.1
+    errs.append(compare_knn2(s2, m2, np.array([0, 1, 2], np.int32),
+                             np.array([1, 2, 0], np.int32), "ragged N=1000")[0])
+    # one valid database column: d2 must be +inf, idx that column
+    m3 = np.zeros((2, 1000), bool)
+    m3[1, 517] = True
+    compare_knn2(s2[:2], m3, np.array([0], np.int32),
+                 np.array([1], np.int32), "one valid column")
+    # duplicate best: queries equal to a database row that appears twice;
+    # the tie goes to the lower column and second == best
+    s4 = unit_store(rng, 2, 512)
+    s4[1, 300] = s4[1, 40]
+    s4[0, :8] = s4[1, 40]
+    m4 = np.ones((2, 512), bool)
+    compare_knn2(s4, m4, np.array([0], np.int32), np.array([1], np.int32),
+                 "duplicate-best tie")
+    dev = torch.device("cuda")
+    st = torch.tensor(s4, device=dev).to(torch.bfloat16)
+    d1, d2, idx = matching.knn2_gather(st, torch.tensor(m4, device=dev),
+                                       torch.tensor([0], dtype=torch.int32,
+                                                    device=dev),
+                                       torch.tensor([1], dtype=torch.int32,
+                                                    device=dev))
+    if idx[0, :8].tolist() != [40] * 8 or \
+            not torch.equal(d1[0, :8], d2[0, :8]):
+        raise AssertionError("duplicate-best tie not resolved to the lower "
+                             "column with second == best")
+
+    # time kernel vs plain at the main path's verify batch
+    store_t = torch.tensor(store, device=dev).to(torch.bfloat16)
+    mask_t = torch.tensor(mask, device=dev)
+    ii_t = torch.tensor(ii, device=dev)
+    jj_t = torch.tensor(jj, device=dev)
+    plain_ms = cuda_time_ms(lambda: matching.knn2_reference(
+        store_t, mask_t, ii_t, jj_t))
+    ms = cuda_time_ms(lambda: matching.knn2_gather(store_t, mask_t, ii_t,
+                                                   jj_t))
+    plain_ms2 = cuda_time_ms(lambda: matching.knn2_reference(
+        store_t, mask_t, ii_t, jj_t))
+    ms2 = cuda_time_ms(lambda: matching.knn2_gather(store_t, mask_t, ii_t,
+                                                    jj_t))
+    flop = 2.0 * 32 * 4096 * 4096 * 128
+    print(f"  knn2 B=32 N=4096: kernel {ms:.3f}/{ms2:.3f} ms "
+          f"({flop / (min(ms, ms2) * 1e9):.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f}/{plain_ms2:.3f} ms", flush=True)
+    return {"name": "knn2", "route": "cuda",
+            "source": "metricsfm_tpu_torch/ops/csrc/knn2.cu",
+            "replaces": "metricsfm_tpu/ops/pallas/match_kernel.py:45",
+            "max_abs_err": max(errs), "ms": min(ms, ms2),
+            "plain_ms": min(plain_ms, plain_ms2)}
+
+
+def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
+    """Run `cli sfm` on a rendered scene `runs` times (fresh folders; the
+    first run warms CUDA and library initialization, the last is timed);
+    returns the last run's (launch counts, stats)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.utils import synth
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+    gt = synth.render_scene(seed=0, n_cams=n_cams, width=width,
+                            height=height, focal=1.1 * width)
+    stats = {}
+    for run in range(runs):
+        fold = tempfile.mkdtemp(prefix="msf_smoke_")
+        try:
+            synth.write_scene_images(fold, gt)
+            GLOBAL_TRACER.reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            matching.knn2_gather.launches = 0
+            t0 = time.perf_counter()
+            scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
+                               "all", "--no-resize", "--max-kp",
+                               str(max_kp), "--device", "cuda"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {"knn2": matching.knn2_gather.launches}
+        finally:
+            shutil.rmtree(fold, ignore_errors=True)
+        if not scenes:
+            raise AssertionError("no model reconstructed")
+        best = max(scenes, key=lambda s: len(s.registered))
+        est = np.stack([np_geom.camera_center(best.poses[i])
+                        for i in best.registered])
+        ate = synth.ate_vs_gt(est, gt["centers"][best.registered])
+        peak = torch.cuda.max_memory_allocated()
+        label = "warm-up" if run < runs - 1 else "timed"
+        print(f"  e2e run {run} ({label}): {len(best.registered)}/{n_cams} "
+              f"registered, {best.n_points()} points, ATE {ate:.5f}, "
+              f"{dt:.3f} s = {n_cams / dt:.4f} images/s, peak "
+              f"{peak / 2**20:.1f} MiB, launches {launches}", flush=True)
+        if len(best.registered) != n_cams:
+            raise AssertionError(f"registered {len(best.registered)}/{n_cams}")
+        if ate >= 0.05:
+            raise AssertionError(f"ATE {ate} >= 0.05 of trajectory extent")
+        if peak <= 0:
+            raise AssertionError("no device memory was allocated")
+        stats = {"images_per_s": n_cams / dt, "seconds": dt, "ate": ate,
+                 "peak_bytes": peak, "stages": GLOBAL_TRACER.report()}
+    print("  stage table (timed run):\n" + "\n".join(
+        "    " + ln for ln in stats["stages"].splitlines()), flush=True)
+    return launches, stats
+
+
+def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
+    """One more end-to-end run under torch.profiler: device busy share
+    (sum of kernel time over wall time; one stream, so kernels do not
+    overlap), the top kernels by device time, and a Chrome trace in
+    out_dir."""
+    import torch
+    from torch.autograd import DeviceType
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.utils import synth
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER, device_trace
+
+    gt = synth.render_scene(seed=0, n_cams=n_cams, width=width,
+                            height=height, focal=1.1 * width)
+    fold = tempfile.mkdtemp(prefix="msf_smoke_prof_")
+    try:
+        synth.write_scene_images(fold, gt)
+        GLOBAL_TRACER.reset()
+        torch.cuda.synchronize()
+        with device_trace(out_dir) as prof:
+            t0 = time.perf_counter()
+            cli.main(["sfm", fold, "--mode", "web", "--matching", "all",
+                      "--no-resize", "--max-kp", str(max_kp), "--device",
+                      "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(fold, ignore_errors=True)
+    # kernel rows only: operator rows repeat their kernels' device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    dev_s = sum(e.self_device_time_total for e in events) / 1e6
+    print(f"  profiled e2e: wall {wall:.3f} s, device busy {dev_s:.3f} s "
+          f"({100 * dev_s / wall:.1f}%), idle {100 * (1 - dev_s / wall):.1f}%"
+          " (profiler on)", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6} "
+              f"{e.key[:90]}", flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--skip-e2e", action="store_true",
+                    help="stop after the kernel phase")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="also profile one end-to-end run; trace to DIR")
+    args = ap.parse_args(argv)
+
+    import torch
+    with phase("1 device"):
+        if not torch.cuda.is_available():
+            raise SystemExit("CUDA is not available: this smoke run needs "
+                             "one NVIDIA GPU")
+        card = gpu_line()
+        print(f"  card: {card}", flush=True)
+        print(f"  torch {torch.__version__} cuda {torch.version.cuda}, "
+              f"device {torch.cuda.get_device_name(0)}", flush=True)
+    with phase("2 build kernels"):
+        from metricsfm_tpu_torch.ops import cuda_build
+        cuda_build.load_library("knn2")
+        info = cuda_build.build_info["knn2"]
+        print(f"  knn2.cu built in {info['seconds']:.3f} s", flush=True)
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "smem" in ln:
+                print("    " + ln.strip(), flush=True)
+    with phase("3 kernels vs plain"):
+        row = kernel_phase()
+    if args.skip_e2e:
+        return 0
+    with phase("4 main path: cli sfm"):
+        launches, stats = main_path_phase()
+        for name, n in launches.items():
+            if n < 1:
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     "the main path")
+        row["launches"] = launches["knn2"]
+    if args.profile:
+        with phase("4b profiled main path"):
+            profile_phase(args.profile)
+    with phase("5 report"):
+        print(json.dumps({"e2e": {k: v for k, v in stats.items()
+                                  if k != "stages"}}), flush=True)
+    print(json.dumps({"kernels": [row]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Command-line entry point of the PyTorch port.
+
+  python -m metricsfm_tpu_torch.cli sfm <image_fold> [--mode web|uav]
+      [--out DIR] [--max-kp N] [--no-resize] [--matching all]
+      [--device cuda|cpu]
+
+Counterpart of `metricsfm_tpu.cli sfm` (the reference's test_sfm.cc
+driver).  The slam, dense and calib commands are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def _device(name: str):
+    import torch
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    return dev
+
+
+def cmd_sfm(args):
+    """Images -> features -> match graph -> incremental SfM -> exports.
+    Returns the reconstructed scenes."""
+    import dataclasses
+
+    from .config import PRESETS
+    from .io import exports
+    from .models.database import Database
+    from .models.incremental import IncrementalSfM
+    from .models.match_graph import build_match_graph
+    from .utils.tracing import GLOBAL_TRACER, span
+
+    device = _device(args.device)
+    cfg = PRESETS[args.mode]()
+    # optional overrides (small test scenes / CPU runs)
+    if args.max_kp:
+        cfg = dataclasses.replace(cfg, database=dataclasses.replace(
+            cfg.database, max_keypoints=args.max_kp))
+    if args.no_resize:
+        cfg = dataclasses.replace(cfg, database=dataclasses.replace(
+            cfg.database, resize=False))
+    if args.matching:
+        cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
+            cfg.graph, matching_type=args.matching))
+    db = Database(args.fold, cfg.database, output_fold=args.out,
+                  device=device)
+    print(f"{db.n_images} images on {device}")
+    with span("sfm/feature_extraction", sync=True):
+        db.feature_extraction(verbose=True)
+    with span("sfm/match_graph", sync=True):
+        matches = build_match_graph(db, cfg, verbose=True)
+    feats = {i: db.features(i) for i in range(db.n_images)}
+    with span("sfm/reconstruct", sync=True):
+        sfm = IncrementalSfM(feats, matches, cfg, device=device)
+        scenes = sfm.run(verbose=True)
+    for k, scene in enumerate(scenes):
+        fold = os.path.join(db.out, f"model_{k}")
+        os.makedirs(fold, exist_ok=True)
+        kp_xy = {i: feats[i].xy for i in scene.registered}
+        with span("sfm/exports"):
+            exports.write_cams_points(fold, scene)
+            exports.write_point_cloud(os.path.join(fold, "cloud.txt"), scene)
+            exports.write_bundler(os.path.join(fold, "bundle.rd.out"), scene,
+                                  kp_xy)
+            exports.write_cmvs(os.path.join(fold, "cmvs"), scene, kp_xy)
+            names = {i: os.path.basename(db.image_paths[i])
+                     for i in scene.registered}
+            principal = {i: (feats[i].width / 2.0, feats[i].height / 2.0)
+                         for i in scene.registered}
+            sizes = {i: (feats[i].width, feats[i].height)
+                     for i in scene.registered}
+            exports.write_openmvs(os.path.join(fold, "sfm_openmvs.txt"),
+                                  scene, kp_xy, names, principal, sizes)
+            exports.write_sure(os.path.join(fold, "sfm_sure.txt"), scene,
+                               names, principal, sizes)
+            # undistorted image copies (write_undistorted_images) are not
+            # ported yet
+        print(f"model {k}: {len(scene.registered)} cams, "
+              f"{scene.n_points()} points -> {fold}")
+    print("-- stage times --")
+    print(GLOBAL_TRACER.report())
+    return scenes
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="metricsfm_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    ps = sub.add_parser("sfm", help="incremental SfM on an image folder")
+    ps.add_argument("fold")
+    ps.add_argument("--mode", choices=["web", "uav"], default="web")
+    ps.add_argument("--out", default=None)
+    ps.add_argument("--max-kp", type=int, default=0,
+                    help="override keypoint budget per image")
+    ps.add_argument("--no-resize", action="store_true",
+                    help="skip resize to the working resolution")
+    ps.add_argument("--matching", choices=["all", "priori", "feature"],
+                    default=None, help="override candidate strategy")
+    ps.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default; raises without a "
+                    "card) or cpu")
+    ps.set_defaults(fn=cmd_sfm)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,206 @@
+"""Interop export writers: Bundler/CMVS, OpenMVS, SURE, clouds.
+
+Counterpart of metricsfm_tpu/io/exports.py; the writers are host numpy and
+produce the same files.  write_qin and write_undistorted_images are not
+ported yet and raise.  Format-compatible re-implementations of the reference writers
+(SfM/src/sfm_incremental.cc:1148-1394 SaveforOpenMVS/SaveforCMVS,
+ slam_gps.cc:1533-1571 SaveforMSP, sfm_incremental.cc:1425-1463
+ WriteCameraPointsOut) so downstream MVS tools (CMVS/PMVS, OpenMVS
+ converter, SURE, MSP.exe) accept the output unchanged.
+
+All writers take a Scene + per-image metadata; observation coordinates are
+de-centered back to pixel coords (+px, +py) exactly where the reference
+does so.
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..ops import np_geom
+
+
+def _Rt(scene, img):
+    return np_geom.pose_to_Rt(scene.poses[img])
+
+
+def _center(scene, img):
+    return np_geom.camera_center(scene.poses[img])
+
+
+def write_point_cloud(path: str, scene, colors: Optional[np.ndarray] = None,
+                      with_cameras: bool = True, frustum_size: float = 0.2):
+    """Colored cloud + camera frustum glyphs (ref WriteCameraPointsOut,
+    sfm_incremental.cc:1425-1463): 'x y z r g b' rows."""
+    with open(path, "w") as f:
+        for k, t in enumerate(scene.tracks):
+            if t.is_bad:
+                continue
+            c = colors[k] if colors is not None else (255, 255, 255)
+            f.write(f"{t.xyz[0]:.6f} {t.xyz[1]:.6f} {t.xyz[2]:.6f} "
+                    f"{int(c[0])} {int(c[1])} {int(c[2])}\n")
+        if with_cameras:
+            for img in scene.registered:
+                R, _ = _Rt(scene, img)
+                c = _center(scene, img)
+                # 5-point frustum glyph in red (ref GenerateCamera3D)
+                s = frustum_size
+                corners = np.array([[-s, -s, 2 * s], [s, -s, 2 * s],
+                                    [s, s, 2 * s], [-s, s, 2 * s]])
+                world = c[None, :] + corners @ R
+                for p in np.vstack([c[None, :], world]):
+                    f.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f} 255 0 0\n")
+
+
+def write_cams_points(fold: str, scene, tag: str = ""):
+    """Plain cams/pts text dumps (ref SaveModel cams_pts path)."""
+    os.makedirs(fold, exist_ok=True)
+    with open(os.path.join(fold, f"cams{tag}.txt"), "w") as f:
+        for img in scene.registered:
+            R, t = _Rt(scene, img)
+            m = scene.models[scene.model_of_image[img]]
+            f.write(f"{img} {m.f:.8f} {m.k1:.10f} {m.k2:.10f}\n")
+            f.write(" ".join(f"{v:.10f}" for v in R.reshape(-1)) + "\n")
+            f.write(" ".join(f"{v:.10f}" for v in t) + "\n")
+    with open(os.path.join(fold, f"pts{tag}.txt"), "w") as f:
+        for t_ in scene.tracks:
+            if not t_.is_bad:
+                f.write(f"{t_.xyz[0]:.8f} {t_.xyz[1]:.8f} {t_.xyz[2]:.8f}\n")
+
+
+def write_bundler(path: str, scene, kp_xy: Dict[int, np.ndarray],
+                  image_subset: Optional[List[int]] = None):
+    """Bundler v0.3 bundle.rd.out (ref SaveforCMVS step1,
+    sfm_incremental.cc:1300-1345)."""
+    imgs = image_subset if image_subset is not None else scene.registered
+    local = {im: k for k, im in enumerate(imgs)}
+    pts = [t for t in scene.tracks
+           if not t.is_bad and any(im in local for im in t.obs)]
+    with open(path, "w") as f:
+        f.write("# Bundle file v0.3\n")
+        f.write(f"{len(imgs)} {len(pts)}\n")
+        for im in imgs:
+            m = scene.models[scene.model_of_image[im]]
+            R, t = _Rt(scene, im)
+            f.write(f"{m.f:.8f} {m.k1:.8f} {m.k2:.8f}\n")
+            for row in R:
+                f.write(" ".join(f"{v:.8f}" for v in row) + "\n")
+            f.write(" ".join(f"{v:.8f}" for v in t) + "\n")
+        for tr in pts:
+            f.write(f"{tr.xyz[0]:.8f} {tr.xyz[1]:.8f} {tr.xyz[2]:.8f}\n")
+            f.write("255 255 255\n")
+            obs = [(im, kp) for im, kp in tr.obs.items() if im in local]
+            parts = []
+            for im, kp in obs:
+                xy = kp_xy[im][kp]
+                parts.append(f"{local[im]} {kp} {float(xy[0]):.4f} {float(xy[1]):.4f}")
+            f.write(f"{len(obs)} " + " ".join(parts) + "\n")
+
+
+def write_cmvs(fold: str, scene, kp_xy: Dict[int, np.ndarray],
+               max_cluster: int = 500):
+    """CMVS folder layout: clusters of <=500 cameras with bundle.rd.out +
+    txt/ P-matrices (ref SaveforCMVS, sfm_incremental.cc:1247-1394)."""
+    os.makedirs(fold, exist_ok=True)
+    imgs = scene.registered
+    n_cluster = max(1, math.ceil(len(imgs) / max_cluster))
+    step = math.ceil(len(imgs) / n_cluster)
+    for k in range(n_cluster):
+        sub = imgs[k * step:(k + 1) * step]
+        cfold = os.path.join(fold, f"cmvs{k}")
+        os.makedirs(os.path.join(cfold, "visualize"), exist_ok=True)
+        os.makedirs(os.path.join(cfold, "txt"), exist_ok=True)
+        write_bundler(os.path.join(cfold, "bundle.rd.out"), scene, kp_xy, sub)
+        for li, im in enumerate(sub):
+            R, t = _Rt(scene, im)
+            m = scene.models[scene.model_of_image[im]]
+            K = np.array([[m.f, 0, 0], [0, m.f, 0], [0, 0, 1.0]])
+            P = K @ np.hstack([R, t[:, None]])
+            name = str(li).zfill(8)
+            with open(os.path.join(cfold, "txt", f"{name}.txt"), "w") as f:
+                f.write("CONTOUR\n")
+                for row in P:
+                    f.write(" ".join(f"{v:.8f}" for v in row) + "\n")
+
+
+def write_openmvs(path: str, scene, kp_xy: Dict[int, np.ndarray],
+                  image_names: Dict[int, str],
+                  principal: Dict[int, tuple], sizes: Dict[int, tuple]):
+    """sfm_openmvs.txt interface (ref SaveforOpenMVS,
+    sfm_incremental.cc:1148-1246): cams then points with de-centered obs."""
+    imgs = scene.registered
+    with open(path, "w") as f:
+        f.write(f"{len(imgs)}\n")
+        for im in imgs:
+            m = scene.models[scene.model_of_image[im]]
+            R, t = _Rt(scene, im)
+            f.write(f"{image_names.get(im, str(im))}\n")
+            f.write(f"{m.f:.8f}\n")
+            f.write(" ".join(f"{v:.8f}" for v in R.reshape(-1)) + "\n")
+            f.write(" ".join(f"{v:.8f}" for v in t) + "\n")
+        good = []
+        for tr in scene.tracks:
+            if tr.is_bad:
+                continue
+            obs = []
+            for im, kp in tr.obs.items():
+                if im not in kp_xy:
+                    continue
+                px, py = principal.get(im, (0.0, 0.0))
+                w, h = sizes.get(im, (1 << 30, 1 << 30))
+                x = kp_xy[im][kp][0] + px
+                y = kp_xy[im][kp][1] + py
+                if 0 <= x < w and 0 <= y < h:
+                    obs.append((im, float(x), float(y)))
+            if len(obs) >= 2:
+                good.append((tr, obs))
+        f.write(f"{len(good)}\n")
+        for tr, obs in good:
+            f.write(f"{tr.xyz[0]:.8f} {tr.xyz[1]:.8f} {tr.xyz[2]:.8f} "
+                    f"255 255 255 {len(obs)}\n")
+            for im, x, y in obs:
+                f.write(f"{im} {x:.4f} {y:.4f}\n")
+
+
+def write_sure(path: str, scene, image_names: Dict[int, str],
+               principal: Dict[int, tuple], sizes: Dict[int, tuple]):
+    """SURE-format pose file (the format DenseReconstruction reads back,
+    dense_reconstruction.cc:70-111): 8 header lines then per camera
+    'name w h / K / k1 k2 k3 p1 p2 / t / R'."""
+    with open(path, "w") as f:
+        f.write("# SURE-compatible orientation file\n")
+        f.write("# written by metricsfm_tpu\n")
+        for _ in range(6):
+            f.write("#\n")
+        for im in scene.registered:
+            m = scene.models[scene.model_of_image[im]]
+            R, t = _Rt(scene, im)
+            px, py = principal.get(im, (0.0, 0.0))
+            w, h = sizes.get(im, (0, 0))
+            f.write(f"{image_names.get(im, str(im))} {w} {h}\n")
+            K = [[m.f, 0.0, px], [0.0, m.f, py], [0.0, 0.0, 1.0]]
+            for row in K:
+                f.write(" ".join(f"{v:.8f}" for v in row) + "\n")
+            f.write(f"{m.k1:.10f} {m.k2:.10f} 0.0 0.0 0.0\n")
+            f.write(" ".join(f"{v:.8f}" for v in t) + "\n")
+            for row in R:
+                f.write(" ".join(f"{v:.8f}" for v in row) + "\n")
+
+
+def write_qin(path: str, scene, image_names: Dict[int, str],
+              cols: int, rows: int, pixel_mm: float = 0.005):
+    """MSP pose.qin (ref SaveforMSP, slam_gps.cc:1533-1571)."""
+    raise NotImplementedError(
+        "write_qin is not ported yet (ROADMAP queue 1, item 'exports')")
+
+
+def write_undistorted_images(fold: str, scene, image_paths: Dict[int, str],
+                             verbose: bool = False):
+    """Undistorted copies of the registered images (ref
+    SaveUndistortedImage, sfm_incremental.cc:1092-1146)."""
+    raise NotImplementedError(
+        "write_undistorted_images is not ported yet (ROADMAP queue 1, "
+        "item 'exports')")

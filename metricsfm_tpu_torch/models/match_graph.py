@@ -1,0 +1,214 @@
+"""Match-graph construction: candidate selection + fine matching + F-verify.
+
+Counterpart of metricsfm_tpu/models/match_graph.py (the reference graph
+layer, SfM/src/graph.{h,cc}, graph/initial_matching_graph.cc,
+graph/fine_matching_graph.cc):
+
+* Candidate pairs: "all" (exhaustive, initial_matching_graph.cc:57-64).
+  The "priori" (GPS) and "feature" (BoW) strategies are not ported yet and
+  raise; like the JAX package, 12 images or fewer always match all pairs.
+* Fine matching: exact 2-NN with dual ratio tests (fine_matching_graph.cc:
+  42-43); "good" matches (ratio < 0.6) estimate F via batched RANSAC, then
+  "all" matches (ratio < 0.85) are re-filtered by epipolar distance < 3 px
+  (fine_matching_graph.cc:137-147).
+* The driver is BATCHED: the descriptor store goes to the device once (as
+  bf16), and each batch of pairs is one 2-NN kernel launch that gathers its
+  rows by pair index, followed by one batched RANSAC + re-filter — the
+  counterpart of the reference's OpenMP loop over pairs
+  (fine_matching_graph.cc:87).
+* Per-image match shards persist for resume (match_index semantics).
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import GraphOptions
+from ..io import store as fstore
+from ..ops import epipolar, matching, ransac
+from .incremental import PairMatches
+
+
+def candidates_all(n: int) -> List[Tuple[int, int]]:
+    """Exhaustive pairs (ref :57-64, UAV preset matching_type='all')."""
+    return list(itertools.combinations(range(n), 2))
+
+
+def verify_pairs(opts: GraphOptions, desc, xy, mask, ii, jj, generator):
+    """The per-pair fine-matching + verification chain for a pair batch
+    (ref fine_matching_graph.cc:104-147), all pairs at once.
+
+    desc (M, N, D) bf16, xy (M, N, 2), mask (M, N): the device store;
+    ii, jj (B,) int32 store rows of each pair.
+    Returns (keep (B, N) bool, idx2 (B, N), ok (B,)).
+    """
+    d1_sq, d2_sq, idx2 = matching.knn2_gather(desc, mask, ii, jj)
+    iil, jjl = ii.long(), jj.long()
+    res = matching.ratio_tests(d1_sq, d2_sq, idx2, mask[iil],
+                               opts.ratio_good, opts.ratio_all)
+    p1 = xy[iil]                                           # (B, N, 2)
+    p2g = xy[jjl[:, None], idx2.long()]                    # (B, N, 2)
+    fr = ransac.fundamental_ransac(p1, p2g, generator, mask=res["good"],
+                                   th_px=opts.epipolar_px,
+                                   min_inliers=opts.geoverify_min_inliers)
+    d = epipolar.epipolar_distance(fr["F"], p1, p2g)
+    keep = res["all"] & (d < opts.epipolar_px)
+    # fixed per-pair match budget (GraphOptions.max_matches_per_pair):
+    # keep the `budget` smallest descriptor distances among survivors
+    budget = opts.max_matches_per_pair
+    if budget < keep.shape[1]:
+        dist = torch.where(keep, res["dist_sq"], torch.inf)
+        kth = torch.sort(dist, dim=1).values[:, budget - 1:budget]
+        keep = keep & (dist <= kth)
+    ok = (fr["ok"] & (torch.sum(res["good"], dim=1) >= 8)
+          & (torch.sum(keep, dim=1) >= opts.geoverify_min_inliers))
+    return keep & ok[:, None], idx2, ok
+
+
+class MatchGraphBuilder:
+    """Build the verified match graph over candidate pairs (batched)."""
+
+    def __init__(self, options: GraphOptions, out_fold: Optional[str] = None,
+                 seed: int = 0, batch_pairs: int = 32, device="cpu"):
+        self.opts = options
+        self.out = out_fold
+        self.batch_pairs = batch_pairs
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+    def _upload_store(self, features, imgs):
+        """Pad every image to one keypoint budget N (a multiple of 128) and
+        upload descriptors (bf16), coordinates and masks once."""
+        kmax = max(int(features[i].mask.shape[0]) for i in imgs)
+        N = -(-kmax // 128) * 128
+        D = features[imgs[0]].desc.shape[1]
+        desc = np.zeros((len(imgs), N, D), np.float32)
+        xy = np.zeros((len(imgs), N, 2), np.float32)
+        mask = np.zeros((len(imgs), N), bool)
+        for r, i in enumerate(imgs):
+            f = features[i]
+            k = f.mask.shape[0]
+            desc[r, :k] = f.desc
+            xy[r, :k] = f.xy
+            mask[r, :k] = f.mask
+        dev = self.device
+        return (torch.from_numpy(desc).to(torch.bfloat16).to(dev),
+                torch.from_numpy(xy).to(dev), torch.from_numpy(mask).to(dev))
+
+    def build(self, features, pairs: List[Tuple[int, int]],
+              verbose: bool = False, owner=None
+              ) -> Dict[Tuple[int, int], PairMatches]:
+        """Match every candidate pair (resume-aware when out_fold set).
+
+        `features` maps image id -> ImageFeatures with descriptors.  Pairs
+        are processed in batches of `batch_pairs`: one kernel launch for
+        the 2-NN of the batch, one batched RANSAC + re-filter, and one
+        device->host copy of the results.
+
+        owner=(process_id, process_count): this process matches only the
+        pairs whose FIRST image falls in its contiguous image shard.
+        """
+        if owner is not None:
+            from ..parallel.mesh import owned_range
+            n_imgs = 1 + max((max(i, j) for i, j in pairs), default=0)
+            lo, hi = owned_range(n_imgs, *owner)
+            pairs = [(i, j) for (i, j) in pairs if lo <= i < hi]
+
+        out: Dict[Tuple[int, int], PairMatches] = {}
+        todo: List[Tuple[int, int]] = []
+        # per-image match shards ({i}_match like the reference,
+        # fine_matching_graph.cc:182-193), per-pair resume granularity
+        # kept via the shard's processed-j list
+        recs: Dict[int, dict] = {}
+        if self.out is not None:
+            for i in sorted({i for (i, _) in pairs}):
+                r = fstore.read_image_matches(self.out, i)
+                if r is not None:
+                    recs[i] = r
+        for (i, j) in pairs:
+            r = recs.get(i)
+            if r is not None and j in r["processed"]:
+                if j in r["pairs"]:
+                    a, b = r["pairs"][j]
+                    out[(i, j)] = PairMatches(kp_i=a, kp_j=b)
+                continue
+            todo.append((i, j))
+        pending: Dict[int, int] = {}
+        for (i, _) in todo:
+            pending[i] = pending.get(i, 0) + 1
+        fresh: Dict[int, Dict[int, tuple]] = {}
+
+        if todo:
+            imgs = sorted({i for p in todo for i in p})
+            row_of = {im: r for r, im in enumerate(imgs)}
+            desc_all, xy_all, mask_all = self._upload_store(features, imgs)
+            B = self.batch_pairs
+            n_batches = -(-len(todo) // B)
+            for bi in range(n_batches):
+                chunk_pairs = todo[bi * B:(bi + 1) * B]
+                ii = torch.tensor([row_of[i] for i, _ in chunk_pairs],
+                                  dtype=torch.int32).to(self.device)
+                jj = torch.tensor([row_of[j] for _, j in chunk_pairs],
+                                  dtype=torch.int32).to(self.device)
+                keep, idx2, ok = verify_pairs(self.opts, desc_all, xy_all,
+                                              mask_all, ii, jj, self.gen)
+                keep, idx2, ok = (keep.cpu().numpy(), idx2.cpu().numpy(),
+                                  ok.cpu().numpy())
+                for b, (i, j) in enumerate(chunk_pairs):
+                    if ok[b]:
+                        kp_i = np.where(keep[b])[0]
+                        m = PairMatches(kp_i=kp_i.astype(np.int64),
+                                        kp_j=idx2[b][kp_i].astype(np.int64))
+                        out[(i, j)] = m
+                    else:
+                        m = None
+                    if self.out is not None:
+                        fresh.setdefault(i, {})[j] = (
+                            m.kp_i if m else np.empty(0, np.int64),
+                            m.kp_j if m else np.empty(0, np.int64))
+                        pending[i] -= 1
+                        if pending[i] == 0:
+                            # image i complete: merge with any prior shard
+                            # and persist once (partial-progress semantics
+                            # like the reference's per-image writes)
+                            merged = dict(fresh.pop(i))
+                            old = recs.get(i)
+                            if old is not None:
+                                for j2 in old["processed"]:
+                                    if j2 not in merged:
+                                        merged[j2] = old["pairs"].get(
+                                            j2, (np.empty(0, np.int64),
+                                                 np.empty(0, np.int64)))
+                            fstore.write_image_matches(self.out, i, merged)
+                if verbose:
+                    print(f"matching batch {bi + 1}/{n_batches} "
+                          f"({min((bi + 1) * B, len(todo))}/{len(todo)} pairs)")
+
+        if self.out is not None:
+            fstore.write_match_graph(
+                self.out, {k: len(v.kp_i) for k, v in out.items()})
+        return out
+
+
+def build_match_graph(database, config, verbose: bool = False, device=None):
+    """End-to-end graph build (ref Graph::BuildGraph, graph.cc:52-70):
+    candidate pairs, then batched fine matching on `device` (default: the
+    database's).  Returns {(i, j): PairMatches}."""
+    opts = config.graph
+    n = database.n_images
+    if opts.matching_type == "all" or n <= 12:
+        pairs = candidates_all(n)
+    else:
+        raise NotImplementedError(
+            f"matching_type {opts.matching_type!r} (GPS 'priori' / BoW "
+            "'feature' candidates) is not ported yet (ROADMAP queue 1)")
+    if verbose:
+        print(f"match graph: {len(pairs)} candidate pairs for {n} images")
+    builder = MatchGraphBuilder(opts, out_fold=database.out,
+                                device=device or database.device)
+    feats = {i: database.features(i) for i in range(n)}
+    return builder.build(feats, pairs, verbose=verbose)

@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (see metricsfm_tpu_torch/__init__.py)."""

@@ -1,0 +1,192 @@
+"""Parity of the port's dense-Schur LM bundle adjuster with the JAX package.
+
+The problem is tests/conftest.make_scene, built as a JAX BAProblem and
+carried across with problem.from_numpy.  Tolerances: f32 on both sides;
+the linear systems agree to summation order, and after a fixed number of
+LM iterations the solutions agree to the conditioning of the problem.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metricsfm_tpu.ba import LMConfig as JLM
+from metricsfm_tpu.ba import lm as jlm
+from metricsfm_tpu.ba import problem as jprob
+from metricsfm_tpu.ba import solve_lm as jsolve
+from metricsfm_tpu_torch.ba import LMConfig as TLM
+from metricsfm_tpu_torch.ba import lm as tlm
+from metricsfm_tpu_torch.ba import problem as tprob
+from metricsfm_tpu_torch.ba import solve_lm as tsolve
+from tests.conftest import make_scene
+from tests.test_ba import scene_to_problem
+from tests.torch_threads import torch_threads  # noqa: F401
+
+
+def _problem(seed=0, n_cams=6, n_pts=150, shared=False, noise_px=0.3):
+    rng = np.random.default_rng(seed)
+    sc = make_scene(rng, n_cams=n_cams, n_pts=n_pts, noise_px=noise_px)
+    prob = scene_to_problem(sc, shared_model=shared)
+    poses = np.asarray(prob.poses) + 0.01 * rng.normal(size=prob.poses.shape)
+    pts = np.asarray(prob.points) + 0.05 * rng.normal(size=prob.points.shape)
+    intrs = np.array(prob.intrs)
+    intrs[:, 0] *= 1 + 0.01 * rng.normal(size=len(intrs))
+    # gauge: first camera frozen; points partly frozen to exercise masks
+    point_mut = (rng.uniform(size=n_pts) > 0.1).astype(np.float32)
+    weight = np.where(rng.uniform(size=n_pts) > 0.5, 2.0, 1.0)
+    return prob._replace(
+        poses=jnp.asarray(poses, jnp.float32),
+        points=jnp.asarray(pts, jnp.float32),
+        intrs=jnp.asarray(intrs, jnp.float32),
+        pose_mut=jnp.ones((n_cams,)).at[0].set(0.0),
+        point_mut=jnp.asarray(point_mut),
+        track_weight=jnp.asarray(weight, jnp.float32))
+
+
+def _carry(prob):
+    return tprob.from_numpy({k: np.asarray(v)
+                             for k, v in prob._asdict().items()}, "cpu")
+
+
+def test_from_numpy_round_trip():
+    prob = _problem()
+    tp = _carry(prob)
+    back = tprob.to_numpy(tp)
+    for k in tprob.CORE_FIELDS:
+        np.testing.assert_array_equal(back[k], np.asarray(getattr(prob, k)))
+
+
+def test_cost_and_residuals_match():
+    prob = _problem(1)
+    tp = _carry(prob)
+    np.testing.assert_allclose(tlm.compute_residuals(tp).numpy(),
+                               np.asarray(jlm.compute_residuals(prob)),
+                               atol=2e-3)
+    np.testing.assert_allclose(float(tlm.problem_cost(tp, 1.0)),
+                               float(jlm.problem_cost(prob, 1.0)), rtol=1e-5)
+
+
+def test_reduced_camera_system_matches():
+    """S and rhs of the Schur-reduced system (index_add_ assembly) equal the
+    JAX package's one-hot-matmul assembly."""
+    prob = _problem(2, noise_px=1.5)           # some Huber-downweighted rows
+    cfg_j, cfg_t = JLM(), TLM()
+    Sj, rj, _ = jlm.partial_camera_system(prob, 1e-3, cfg_j)
+    St, rt, _ = tlm.partial_camera_system(_carry(prob), 1e-3, cfg_t)
+    Sj, rj = np.asarray(Sj), np.asarray(rj)
+    scale = np.abs(Sj).max()
+    np.testing.assert_allclose(St.numpy(), Sj, atol=2e-5 * scale)
+    np.testing.assert_allclose(rt.numpy(), rj, atol=2e-5 * np.abs(rj).max())
+    # and the damped, masked solve + back-substitution
+    dj = jlm._assemble_and_solve(prob, jnp.float32(1e-3), cfg_j)
+    dt = tlm._assemble_and_solve(_carry(prob), 1e-3, cfg_t)
+    for a, b in zip(dj, dt):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a,
+                                   atol=1e-3 * max(np.abs(a).max(), 1e-6))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_solve_lm_matches(shared):
+    """A fixed number of LM iterations (rtol 0): final cost within 1e-3
+    relative, poses within 2e-4, points within 2e-3, focal within 1e-4
+    relative."""
+    prob = _problem(3, shared=shared)
+    jo, ji = jsolve(prob, JLM(max_iterations=8, rtol=0.0))
+    to, ti = tsolve(_carry(prob), TLM(max_iterations=8, rtol=0.0))
+    assert ti["iterations"] == int(ji["iterations"]) == 8
+    np.testing.assert_allclose(ti["initial_cost"], float(ji["initial_cost"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(ti["final_cost"], float(ji["final_cost"]),
+                               rtol=1e-3)
+    assert ti["final_cost"] < 0.2 * ti["initial_cost"]
+    np.testing.assert_allclose(to.poses.numpy(), np.asarray(jo.poses),
+                               atol=2e-4)
+    np.testing.assert_allclose(to.points.numpy(), np.asarray(jo.points),
+                               atol=2e-3)
+    np.testing.assert_allclose(to.intrs.numpy()[:, 0],
+                               np.asarray(jo.intrs)[:, 0], rtol=1e-4)
+
+
+def test_solve_lm_converges_like_jax():
+    """Run to convergence at the pipeline's rtol (ba.rtol = 1e-6): both
+    converge, to the same final cost."""
+    prob = _problem(4)
+    jo, ji = jsolve(prob, JLM(max_iterations=50, rtol=1e-6))
+    to, ti = tsolve(_carry(prob), TLM(max_iterations=50, rtol=1e-6))
+    assert ti["converged"] and bool(ji["converged"])
+    np.testing.assert_allclose(ti["final_cost"], float(ji["final_cost"]),
+                               rtol=1e-3)
+    np.testing.assert_allclose(ti["rms_px"], float(ji["rms_px"]), rtol=1e-3)
+
+
+def test_normalize_problem_matches():
+    prob = _problem(5)
+    nj, (mj, sj) = jprob.normalize_problem(prob, 100.0)
+    nt, (mt, st) = tprob.normalize_problem(_carry(prob), 100.0)
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), atol=1e-5)
+    np.testing.assert_allclose(float(st), float(sj), rtol=1e-5)
+    np.testing.assert_allclose(nt.points.numpy(), np.asarray(nj.points),
+                               atol=1e-3)
+    np.testing.assert_allclose(nt.poses.numpy(), np.asarray(nj.poses),
+                               atol=1e-3)
+    back = tprob.denormalize_problem(nt, (mt, st))
+    np.testing.assert_allclose(back.points.numpy(),
+                               np.asarray(prob.points), atol=1e-4)
+
+
+def test_scene_to_ba_problem_matches():
+    """Scene -> BAProblem materialization (tracks, V cap, masks, buckets)
+    gives the same arrays in both packages, and update_from_ba writes back
+    the same poses."""
+    from metricsfm_tpu.models.scene import CameraModel as JCam
+    from metricsfm_tpu.models.scene import Scene as JScene
+    from metricsfm_tpu_torch.models.scene import CameraModel as TCam
+    from metricsfm_tpu_torch.models.scene import Scene as TScene
+
+    rng = np.random.default_rng(8)
+    sc = make_scene(rng, n_cams=5, n_pts=40)
+    kp_xy = {i: sc["obs"][i] for i in range(5)}
+    scenes = []
+    for Scene, Cam in ((JScene, JCam), (TScene, TCam)):
+        s = Scene(6)
+        for i in range(5):
+            mi = s.add_camera_model(Cam(f=1000.0 + i, f_hint=1000.0))
+            s.register_image(i, sc["poses"][i], mi, 40)
+        for p in range(40):
+            views = [i for i in range(5) if (p + i) % 4 != 0]
+            s.add_track(sc["points"][p], {i: p for i in views})
+        s.mark_bad(3)
+        scenes.append(s)
+    kw = dict(max_views=3, mutable_images=[1, 2, 3], weight_multiview=2.0)
+    pj, mj = scenes[0].to_ba_problem(kp_xy, **kw)
+    pt, mt = scenes[1].to_ba_problem(kp_xy, device="cpu", **kw)
+    assert mj == mt
+    for k in tprob.CORE_FIELDS:
+        np.testing.assert_array_equal(getattr(pt, k).numpy(),
+                                      np.asarray(getattr(pj, k)), err_msg=k)
+    moved = pt._replace(poses=pt.poses + 0.01)
+    scenes[1].update_from_ba(moved, mt)
+    scenes[0].update_from_ba(pj._replace(poses=pj.poses + 0.01), mj)
+    for i in range(5):
+        np.testing.assert_allclose(scenes[1].poses[i], scenes[0].poses[i],
+                                   atol=1e-6)
+
+
+def test_unported_terms_raise():
+    prob = _problem(6)
+    arrays = {k: np.asarray(v) for k, v in prob._asdict().items()}
+    arrays["gps_weight"] = np.ones_like(arrays["gps_weight"])
+    with pytest.raises(NotImplementedError):
+        tprob.from_numpy(arrays, "cpu")
+    with pytest.raises(NotImplementedError):
+        tsolve(_carry(prob), TLM(cg_iterations=10))
+
+
+def test_perturb_problem_uses_generator():
+    tp = _carry(_problem(7))
+    a = tprob.perturb_problem(tp, torch.Generator().manual_seed(1))
+    b = tprob.perturb_problem(tp, torch.Generator().manual_seed(1))
+    assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
+    d = (a.points - tp.points).numpy()
+    assert 0.3 < d.std() < 0.7                     # sigma_pt = 0.5
