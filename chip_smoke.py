@@ -5,15 +5,26 @@
 Phases, each printing its own line with seconds; the first failure raises
 and the script exits non-zero:
   1. refuse to run without CUDA; print the card's name and power limit;
-  2. build every CUDA kernel of the sfm path from ops/csrc with nvcc;
+  2. build every CUDA kernel from ops/csrc with nvcc (one nvcc per source,
+     all started together);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, and time both;
-  4. drive the main path, `metricsfm_tpu_torch.cli sfm`, on a rendered
-     8-view 1024x768 scene with 4096 keypoints per image, with every
-     kernel's launch count reset just before and read just after, and check
-     the reconstruction against the scene's ground truth;
-  5. print the kernel table, the card line and the result line.
-The last line of standard output is the result:
+     shapes the main paths give it, and time both: knn2 (2a) at the sfm
+     verify batch; census_cost (2c), sgm_horizontal (2d), sgm_partial (2e)
+     and sgm_total_wta (2f) at 768x1024 / D=128 and at a ragged 37x61 /
+     D=48, exact on every integer output and within 1e-5 on the disparity
+     after the torch tail;
+  4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
+     scene with 4096 keypoints per image, with the knn2 launch count reset
+     just before and read just after, and check the reconstruction against
+     the scene's ground truth;
+  5. drive `metricsfm_tpu_torch.cli dense` on a synthetic rectified
+     768x1024 pair with known disparity (24 px background, 72 px block),
+     D=128, written through the SURE pose format, with every SGM kernel's
+     launch count reset just before and read just after, and check the
+     disparity against the ground truth (the JAX test's gates);
+  6. print the kernel table, the card line and the result line.
+`--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
+of each end-to-end path.  The last line of standard output is the result:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 from __future__ import annotations
@@ -113,7 +124,7 @@ def compare_knn2(store_np, mask_np, ii_np, jj_np, label):
     return err, agree
 
 
-def kernel_phase():
+def knn2_phase():
     """Phase 3 for kernel 2a; returns its table row (without launches)."""
     import itertools
 
@@ -186,6 +197,187 @@ def kernel_phase():
             "plain_ms": min(plain_ms, plain_ms2)}
 
 
+SGM_ROWS = (
+    # name, wrapper, source, replaced TPU kernel body
+    ("census_cost", "census_cost", "sgm_census.cu",
+     "metricsfm_tpu/ops/pallas/sgm_kernel.py:605"),
+    ("sgm_horizontal", "sgm_horizontal", "sgm_aggregate.cu",
+     "metricsfm_tpu/ops/pallas/sgm_kernel.py:118"),
+    ("sgm_partial", "sgm_partial", "sgm_aggregate.cu",
+     "metricsfm_tpu/ops/pallas/sgm_kernel.py:156"),
+    ("sgm_total_wta", "sgm_total_wta", "sgm_aggregate.cu",
+     "metricsfm_tpu/ops/pallas/sgm_kernel.py:283"),
+)
+
+
+def compare_sgm(H, W, D, seed, label, time_it):
+    """Kernels 2c-2f against their plain versions on the card, each fed the
+    same inputs; every integer output must be equal.  Returns
+    {name: (max_abs_err, ms, plain_ms)} (times only when time_it)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import sgm
+    from metricsfm_tpu_torch.ops import sgm_kernel as sk
+    from metricsfm_tpu_torch.utils import synth
+
+    dev = torch.device("cuda")
+    left, right, _ = synth.stereo_pair(np.random.default_rng(seed), H=H,
+                                       W=W, disp_bg=D // 5, disp_fg=D // 2)
+    L = torch.tensor(left, device=dev)
+    R = torch.tensor(right, device=dev)
+    cost_p = sk.census_cost_reference(L, R, D)
+    h_p = sk.horizontal_reference(cost_p)
+    part_p = sk.partial_reference(cost_p, h_p)
+    wl_p, wr_p = sk.total_wta_reference(cost_p, part_p)
+    calls = {   # name: (kernel call, plain call, plain result)
+        "census_cost": (lambda: sk.census_cost(L, R, D),
+                        lambda: sk.census_cost_reference(L, R, D), cost_p),
+        "sgm_horizontal": (lambda: sk.sgm_horizontal(cost_p),
+                           lambda: sk.horizontal_reference(cost_p), h_p),
+        "sgm_partial": (lambda: sk.sgm_partial(cost_p, h_p),
+                        lambda: sk.partial_reference(cost_p, h_p), part_p),
+        "sgm_total_wta": (lambda: sk.sgm_total_wta(cost_p, part_p),
+                          lambda: sk.total_wta_reference(cost_p, part_p),
+                          (wl_p, wr_p)),
+    }
+    out = {}
+    for name, (kern, plain, want) in calls.items():
+        got = kern()
+        torch.cuda.synchronize()
+        if name == "sgm_total_wta":
+            pairs = [(f"left {k}", got[0][k], want[0][k]) for k in want[0]] \
+                + [(f"right {k}", got[1][k], want[1][k]) for k in want[1]]
+        else:
+            pairs = [(name, got, want)]
+        for what, a, b in pairs:
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    not torch.equal(a, b):
+                n_bad = int((a.long() != b.long()).sum()) \
+                    if a.shape == b.shape else -1
+                raise AssertionError(f"{label}: {what} differs from the "
+                                     f"plain version ({n_bad} elements, "
+                                     f"{a.dtype} vs {b.dtype})")
+        out[name] = [0.0, None, None]
+    # the disparity after the torch tail, kernel maps vs plain maps
+    wl, wr = sk.sgm_total_wta(cost_p, part_p)
+    d_k, v_k = sgm.disparity_from_wta(wl, wr, D)
+    d_p, v_p = sgm.disparity_from_wta(wl_p, wr_p, D)
+    derr = float((d_k - d_p).abs().max())
+    if not torch.equal(v_k, v_p) or derr > 1e-5:
+        raise AssertionError(f"{label}: disparity differs ({derr})")
+    out["sgm_total_wta"][0] = derr
+    print(f"  sgm {label}: 2c-2f equal to plain on every integer output "
+          f"(volume, hf+hb, partial, 9 WTA maps); disparity max err "
+          f"{derr:.3g}, valid {float(v_k.float().mean()):.4f}", flush=True)
+    if time_it:
+        for name, (kern, plain, _) in calls.items():
+            # plain versions are Python loops of small launches (~0.1-1 s a
+            # call at this shape): 3 repetitions after 1 warm-up
+            p1 = cuda_time_ms(plain, reps=3, warmup=1)
+            k1 = cuda_time_ms(kern)
+            k2 = cuda_time_ms(kern)
+            p2 = cuda_time_ms(plain, reps=3, warmup=1)
+            out[name][1:] = [min(k1, k2), min(p1, p2)]
+            print(f"  {name} {H}x{W}x{D}: kernel {k1:.3f}/{k2:.3f} ms, "
+                  f"plain {p1:.3f}/{p2:.3f} ms", flush=True)
+    return out
+
+
+def sgm_phase():
+    """Phase 3 for kernels 2c-2f; returns their table rows (no launches)."""
+    ragged = compare_sgm(37, 61, 48, seed=1, label="ragged 37x61x48",
+                         time_it=False)
+    full = compare_sgm(768, 1024, 128, seed=0, label="768x1024x128",
+                       time_it=True)
+    rows = []
+    for name, _, src, replaces in SGM_ROWS:
+        err = max(full[name][0], ragged[name][0])
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"metricsfm_tpu_torch/ops/csrc/{src}",
+                     "replaces": replaces, "max_abs_err": err,
+                     "ms": full[name][1], "plain_ms": full[name][2]})
+    return rows
+
+
+def dense_scene(H=768, W=1024, disp_bg=24.0, disp_fg=72.0):
+    import numpy as np
+    from metricsfm_tpu_torch.utils import synth
+    return synth.stereo_pair(np.random.default_rng(0), H=H, W=W,
+                             disp_bg=disp_bg, disp_fg=disp_fg)
+
+
+def write_dense_fold(fold, left, right, focal, baseline):
+    import numpy as np
+    from PIL import Image
+    from metricsfm_tpu_torch.utils import synth
+
+    H, W = left.shape
+    synth.write_stereo_sure(os.path.join(fold, "sfm_sure.txt"),
+                            ["left.png", "right.png"], W, H, focal, baseline)
+    for name, img in (("left.png", left), ("right.png", right)):
+        Image.fromarray((np.clip(img, 0, 1) * 255).round().astype(
+            np.uint8)).save(os.path.join(fold, name))
+
+
+def dense_phase(D=128, runs=2):
+    """Run `cli dense` on the synthetic pair `runs` times (fresh folders;
+    the last run is timed); returns the last run's (launch counts, stats)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.ops import sgm_kernel
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+    left, right, disp_gt = dense_scene()
+    H, W = left.shape
+    focal, baseline = 1.1 * W, 0.5
+    region = np.zeros((H, W), bool)
+    region[8:-8, 64:-8] = True       # away from the left band (x < 24)
+    for run in range(runs):
+        fold = tempfile.mkdtemp(prefix="msf_smoke_dense_")
+        try:
+            write_dense_fold(fold, left, right, focal, baseline)
+            GLOBAL_TRACER.reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            sgm_kernel.reset_launches()
+            t0 = time.perf_counter()
+            clouds = cli.main(["dense", fold, "--disp", str(D),
+                               "--device", "cuda"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in sgm_kernel.KERNELS}
+            depth = np.load(os.path.join(fold, "dense", "depth_0.npy"))
+        finally:
+            shutil.rmtree(fold, ignore_errors=True)
+        valid = depth > 0
+        disp = np.where(valid, 20.0 * focal * baseline
+                        / np.maximum(depth, 1e-6), -1.0)
+        sel = valid & region
+        err = np.abs(disp - disp_gt)[sel]
+        share, med = float(sel.mean()), float(np.median(err))
+        within2 = float((err < 2).mean())
+        peak = torch.cuda.max_memory_allocated()
+        stages = GLOBAL_TRACER.as_dict()
+        stereo_s = stages["dense/stereo"]["total_s"]
+        label = "warm-up" if run < runs - 1 else "timed"
+        print(f"  dense run {run} ({label}): {dt:.4f} s wall, dense/stereo "
+              f"{stereo_s:.4f} s = {H * W / 1e6 / stereo_s:.3f} MP/s, "
+              f"{len(clouds[0])} points, valid share {share:.4f}, median "
+              f"|err| {med:.4f} px, |err|<2 {within2:.4f}, peak "
+              f"{peak / 2**20:.1f} MiB, launches {launches}", flush=True)
+        if share <= 0.3 or med >= 1.0 or within2 <= 0.8:
+            raise AssertionError(f"dense accuracy gates failed: valid "
+                                 f"{share}, median {med}, <2px {within2}")
+        stats = {"dense_seconds": dt, "stereo_seconds": stereo_s,
+                 "stereo_mp_per_s": H * W / 1e6 / stereo_s,
+                 "valid_share": share, "median_err_px": med,
+                 "peak_bytes": peak, "stages": GLOBAL_TRACER.report()}
+    print("  stage table (timed run):\n" + "\n".join(
+        "    " + ln for ln in stats["stages"].splitlines()), flush=True)
+    return launches, stats
+
+
 def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     """Run `cli sfm` on a rendered scene `runs` times (fresh folders; the
     first run warms CUDA and library initialization, the last is timed);
@@ -243,43 +435,75 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
 
 
 def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
-    """One more end-to-end run under torch.profiler: device busy share
-    (sum of kernel time over wall time; one stream, so kernels do not
-    overlap), the top kernels by device time, and a Chrome trace in
-    out_dir."""
+    """One more run of each end-to-end path under torch.profiler: device
+    busy share (sum of kernel time over wall time; one stream, so kernels do
+    not overlap), the top kernels by device time, and a Chrome trace per
+    path in out_dir/{sfm,dense}."""
     import torch
     from torch.autograd import DeviceType
     from metricsfm_tpu_torch import cli
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER, device_trace
 
-    gt = synth.render_scene(seed=0, n_cams=n_cams, width=width,
-                            height=height, focal=1.1 * width)
-    fold = tempfile.mkdtemp(prefix="msf_smoke_prof_")
-    try:
-        synth.write_scene_images(fold, gt)
-        GLOBAL_TRACER.reset()
-        torch.cuda.synchronize()
-        with device_trace(out_dir) as prof:
-            t0 = time.perf_counter()
-            cli.main(["sfm", fold, "--mode", "web", "--matching", "all",
-                      "--no-resize", "--max-kp", str(max_kp), "--device",
-                      "cuda"])
+    def prepare_sfm(fold):
+        synth.write_scene_images(fold, synth.render_scene(
+            seed=0, n_cams=n_cams, width=width, height=height,
+            focal=1.1 * width))
+        return ["sfm", fold, "--mode", "web", "--matching", "all",
+                "--no-resize", "--max-kp", str(max_kp), "--device", "cuda"]
+
+    def prepare_dense(fold):
+        left, right, _ = dense_scene()
+        write_dense_fold(fold, left, right, 1.1 * left.shape[1], 0.5)
+        return ["dense", fold, "--disp", "128", "--device", "cuda"]
+
+    for label, prepare in (("sfm", prepare_sfm), ("dense", prepare_dense)):
+        fold = tempfile.mkdtemp(prefix=f"msf_smoke_prof_{label}_")
+        try:
+            argv = prepare(fold)
+            GLOBAL_TRACER.reset()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(fold, ignore_errors=True)
-    # kernel rows only: operator rows repeat their kernels' device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    dev_s = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"  profiled e2e: wall {wall:.3f} s, device busy {dev_s:.3f} s "
-          f"({100 * dev_s / wall:.1f}%), idle {100 * (1 - dev_s / wall):.1f}%"
-          " (profiler on)", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6} "
-              f"{e.key[:90]}", flush=True)
+            with device_trace(os.path.join(out_dir, label)) as prof:
+                t0 = time.perf_counter()
+                cli.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(fold, ignore_errors=True)
+        # kernel rows only: operator rows repeat their kernels' device time
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        dev_s = sum(e.self_device_time_total for e in events) / 1e6
+        print(f"  profiled {label}: wall {wall:.3f} s, device busy "
+              f"{dev_s:.3f} s ({100 * dev_s / wall:.1f}%), idle "
+              f"{100 * (1 - dev_s / wall):.1f}% (profiler on)", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<6} {e.key[:90]}", flush=True)
+
+
+def build_phase(names=("knn2", "sgm_census", "sgm_aggregate")):
+    """Build every kernel source at once (one nvcc process each)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from metricsfm_tpu_torch.ops import cuda_build
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        for f in [pool.submit(cuda_build.load_library, n) for n in names]:
+            f.result()
+    for name in names:
+        info = cuda_build.build_info[name]
+        print(f"  {name}.cu built in {info['seconds']:.3f} s", flush=True)
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "smem" in ln \
+                    or "Function properties" in ln:
+                print("    " + ln.strip(), flush=True)
+
+
+def check_launches(launches, path):
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} was not launched on {path}")
 
 
 def main(argv=None):
@@ -287,7 +511,8 @@ def main(argv=None):
     ap.add_argument("--skip-e2e", action="store_true",
                     help="stop after the kernel phase")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also profile one end-to-end run; trace to DIR")
+                    help="also profile one run of each end-to-end path; "
+                    "traces to DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -300,31 +525,29 @@ def main(argv=None):
         print(f"  torch {torch.__version__} cuda {torch.version.cuda}, "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
     with phase("2 build kernels"):
-        from metricsfm_tpu_torch.ops import cuda_build
-        cuda_build.load_library("knn2")
-        info = cuda_build.build_info["knn2"]
-        print(f"  knn2.cu built in {info['seconds']:.3f} s", flush=True)
-        for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
-                print("    " + ln.strip(), flush=True)
+        build_phase()
     with phase("3 kernels vs plain"):
-        row = kernel_phase()
+        rows = [knn2_phase()] + sgm_phase()
     if args.skip_e2e:
         return 0
     with phase("4 main path: cli sfm"):
         launches, stats = main_path_phase()
-        for name, n in launches.items():
-            if n < 1:
-                raise AssertionError(f"kernel {name} was not launched on "
-                                     "the main path")
-        row["launches"] = launches["knn2"]
+        check_launches(launches, "the sfm path")
+    with phase("5 dense path: cli dense"):
+        dense_launches, dense_stats = dense_phase()
+        check_launches(dense_launches, "the dense path")
+    launches.update(dense_launches)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     if args.profile:
-        with phase("4b profiled main path"):
+        with phase("5b profiled end-to-end paths"):
             profile_phase(args.profile)
-    with phase("5 report"):
+    with phase("6 report"):
         print(json.dumps({"e2e": {k: v for k, v in stats.items()
-                                  if k != "stages"}}), flush=True)
-    print(json.dumps({"kernels": [row]}), flush=True)
+                                  if k != "stages"},
+                          "dense": {k: v for k, v in dense_stats.items()
+                                    if k != "stages"}}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

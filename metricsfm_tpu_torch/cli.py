@@ -3,9 +3,15 @@
   python -m metricsfm_tpu_torch.cli sfm <image_fold> [--mode web|uav]
       [--out DIR] [--max-kp N] [--no-resize] [--matching all]
       [--device cuda|cpu]
+  python -m metricsfm_tpu_torch.cli dense <fold> [--pose-file F]
+      [--disp 128] [--method sgm] [--device cuda|cpu]
 
-Counterpart of `metricsfm_tpu.cli sfm` (the reference's test_sfm.cc
-driver).  The slam, dense and calib commands are not ported yet.
+Counterparts of `metricsfm_tpu.cli sfm` (the reference's test_sfm.cc
+driver) and `metricsfm_tpu.cli dense` (pairwise SGM stereo over the
+consecutive views of a SURE pose file, e.g. the `sfm_sure.txt` that `sfm`
+writes; on a card it runs through the CUDA kernels of ops/sgm_kernel,
+with --device cpu through their plain versions).  The slam and calib
+commands and `--method elas` are not ported yet.
 """
 from __future__ import annotations
 
@@ -85,6 +91,23 @@ def cmd_sfm(args):
     return scenes
 
 
+def cmd_dense(args):
+    """Pose file + images -> rectified pairs -> SGM -> depth maps and a
+    cloud in <fold>/dense.  Returns the per-pair point clouds."""
+    from .config import DenseOptions
+    from .models.dense import DenseReconstruction
+    from .utils.tracing import GLOBAL_TRACER, span
+
+    device = _device(args.device)
+    dr = DenseReconstruction(DenseOptions(disp_size=args.disp,
+                                          method=args.method), device=device)
+    with span("dense/run", sync=True):
+        clouds = dr.run(args.fold, pose_file=args.pose_file, verbose=True)
+    print("-- stage times --")
+    print(GLOBAL_TRACER.report())
+    return clouds
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="metricsfm_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -103,6 +126,17 @@ def main(argv=None):
                     help="torch device: cuda (default; raises without a "
                     "card) or cpu")
     ps.set_defaults(fn=cmd_sfm)
+
+    pd = sub.add_parser("dense", help="dense pairwise stereo")
+    pd.add_argument("fold")
+    pd.add_argument("--pose-file", default=None)
+    pd.add_argument("--disp", type=int, default=128)
+    pd.add_argument("--method", choices=["sgm", "elas"], default="sgm",
+                    help="elas is not ported yet and raises")
+    pd.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default; raises without a "
+                    "card) or cpu")
+    pd.set_defaults(fn=cmd_dense)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,0 +1,350 @@
+"""SGM kernels: census + cost volume, 8-path aggregation, fused WTA.
+
+Counterpart of metricsfm_tpu/ops/pallas/sgm_kernel.py.  Four kernels carry
+the fused stereo path (ops/sgm.stereo_sgm), each a wrapper here with its
+plain PyTorch version beside it:
+
+  census_cost      (2c) <- census_cost_pallas / _census_cost_kernel
+  sgm_horizontal   (2d) <- _horizontal_pass / _horizontal_kernel
+  sgm_partial      (2e) <- _partial_sum / _vertical_fwd_kernel
+  sgm_total_wta    (2f) <- aggregate_wta_pallas / _vertical_bwd_kernel
+
+On a CUDA tensor a wrapper launches its kernel (ops/csrc/sgm_census.cu,
+ops/csrc/sgm_aggregate.cu) or raises; on a CPU tensor it runs the plain
+version; any other device raises.  Each wrapper counts its launches in
+`<wrapper>.launches`.
+
+Layouts hold the semantics, not the TPU's padding: the cost volume is
+(H, W, D) uint8 (Hamming costs <= 64), aggregated volumes are (H, W, D)
+int16 (a path value is <= 64 + P2 and the 8-path sum <= 8 * 184 = 1,472),
+and the WTA maps are (H, W) int32.  All values are integers, so kernel and
+plain version agree exactly whatever the order of the sums.  Semantics:
+
+  * census: 9x7 window, bit = centre > neighbour, zero-padded context,
+    bits in dy-outer / dx-inner order with the centre skipped, bits 0-31
+    in word 0 and 32-61 in word 1.  Words are held as int64 tensors with
+    values in [0, 2^32): torch has no uint32 bit operations on every
+    backend.
+  * cost(y, x, d) = popcount(cl(y, x) ^ cr(y, x - d)), and 64 where x < d.
+  * path recurrence L = c + min(prev, prev[d-1] + P1, prev[d+1] + P1,
+    m + P2) - m with m = min_d prev; disparities outside [0, D) count as
+    +big; the first pixel of every path is L = c (a uniform carry, i.e. a
+    restart).
+  * WTA (left): c0 = min_d, best = argmin (ties -> smallest d), c1 = the
+    min over |d - best| > 1 capped at 2 * 8000 (the TPU kernel's masked
+    fill), and cm/cc/cp at clip(best, 1, D-2) -1/0/+1.
+    WTA (right, integer only): the same c0/best/c1 over
+    cost_r(x, d) = total(x + d, d), with 30000 where x + d >= W.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+_RESTART = 16000       # uniform carry == "the path restarts here"
+_C1_CAP = 16000        # c1 fill of the excluded |d - best| <= 1 lanes
+_RIGHT_OOR = 30000     # cost_r where x + d >= W
+MAX_DISP = 256         # 32 lanes x 8 disparities per lane in a warp
+
+WTA_LEFT = ("c0", "best", "c1", "cm", "cc", "cp")
+WTA_RIGHT = ("c0", "best", "c1")
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def census_transform(img, win_h: int = 9, win_w: int = 7):
+    """Census over a (H, W) float image -> (2, H, W) int64 words."""
+    H, W = img.shape
+    rh, rw = win_h // 2, win_w // 2
+    pad = torch.nn.functional.pad(img[None, None], (rw, rw, rh, rh))[0, 0]
+    words = torch.zeros((2, H, W), dtype=torch.int64, device=img.device)
+    k = 0
+    for dy in range(win_h):
+        for dx in range(win_w):
+            if dy == rh and dx == rw:
+                continue
+            bit = (img > pad[dy:dy + H, dx:dx + W]).long() << (k % 32)
+            words[k // 32] |= bit
+            k += 1
+    return words
+
+
+def _popcount32(x):
+    """Bit count of int64 tensors holding values in [0, 2^32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def matching_cost_volume(census_l, census_r, max_disp: int):
+    """(H, W, D) uint8 Hamming cost volume from (2, H, W) census words."""
+    _, H, W = census_l.shape
+    vol = torch.full((H, W, max_disp), 64, dtype=torch.uint8,
+                     device=census_l.device)
+    for d in range(min(max_disp, W)):
+        x = census_l[:, :, d:] ^ census_r[:, :, :W - d]
+        vol[:, d:, d] = (_popcount32(x[0]) + _popcount32(x[1])).to(torch.uint8)
+    return vol
+
+
+def census_cost_reference(left, right, max_disp: int):
+    """Plain version of kernel 2c: 9x7 census of both images + volume."""
+    return matching_cost_volume(census_transform(left),
+                                census_transform(right), max_disp)
+
+
+def _step(prev, c, p1: int, p2: int):
+    """One SGM recurrence, disparity on the last axis (int32)."""
+    m = prev.amin(dim=-1, keepdim=True)
+    edge = torch.full_like(prev[..., :1], _RESTART)
+    sp = torch.cat([edge, prev[..., :-1]], dim=-1)
+    sn = torch.cat([prev[..., 1:], edge], dim=-1)
+    best = torch.minimum(torch.minimum(prev, m + p2),
+                         torch.minimum(sp, sn) + p1)
+    return c + best - m
+
+
+def _shift(prev, s: int):
+    """Move a (M, D) carry by s in {-1, 0, +1} along M; the cell shifted
+    in is uniform (restart).  s=+1: out[x] = prev[x-1]."""
+    if s == 0:
+        return prev
+    fill = torch.full_like(prev[:1], _RESTART)
+    if s > 0:
+        return torch.cat([fill, prev[:-1]], dim=0)
+    return torch.cat([prev[1:], fill], dim=0)
+
+
+def _scan(cost, reverse: bool, shifts, p1: int, p2: int):
+    """Paths along the leading axis of a (N, M, D) volume, one carry per
+    entry of `shifts` (0: straight; +-1: the carry moves one cell along M
+    per step, i.e. a diagonal).  Returns the sum of those paths, int32."""
+    out = torch.empty(cost.shape, dtype=torch.int32, device=cost.device)
+    carries = [torch.full(cost.shape[1:], _RESTART, dtype=torch.int32,
+                          device=cost.device) for _ in shifts]
+    order = range(cost.shape[0] - 1, -1, -1) if reverse \
+        else range(cost.shape[0])
+    for i in order:
+        c = cost[i].to(torch.int32)
+        for j, s in enumerate(shifts):
+            carries[j] = _step(_shift(carries[j], s), c, p1, p2)
+        out[i] = sum(carries)
+    return out
+
+
+def _vertical_shifts(num_paths: int):
+    return (0, 1, -1) if num_paths >= 8 else (0,)
+
+
+def horizontal_reference(cost, p1: int = 10, p2: int = 120):
+    """Plain version of kernel 2d: left->right + right->left paths, int16."""
+    ct = cost.transpose(0, 1)
+    h = _scan(ct, False, (0,), p1, p2) + _scan(ct, True, (0,), p1, p2)
+    return h.transpose(0, 1).contiguous().to(torch.int16)
+
+
+def partial_reference(cost, hsum, p1: int = 10, p2: int = 120,
+                      num_paths: int = 8):
+    """Plain version of kernel 2e: hsum + down (+ down-right, down-left)."""
+    down = _scan(cost, False, _vertical_shifts(num_paths), p1, p2)
+    return (hsum.to(torch.int32) + down).to(torch.int16)
+
+
+def total_reference(cost, partial, p1: int = 10, p2: int = 120,
+                    num_paths: int = 8):
+    """The aggregation half of kernel 2f: partial + up (+ up-right,
+    up-left) = the full 4/8-path sum, int16."""
+    up = _scan(cost, True, _vertical_shifts(num_paths), p1, p2)
+    return (partial.to(torch.int32) + up).to(torch.int16)
+
+
+def _wta(vol, cap_c1):
+    """c0, best, c1 over the last axis of an int32 volume."""
+    D = vol.shape[-1]
+    best = vol.argmin(dim=-1)
+    c0 = vol.gather(-1, best[..., None])[..., 0]
+    d = torch.arange(D, device=vol.device)
+    near = (d - best[..., None]).abs() <= 1     # always holds at d = best
+    c1 = vol.masked_fill(near, cap_c1).amin(dim=-1)
+    return c0, best, c1
+
+
+def wta_maps_reference(total):
+    """The WTA epilogue of kernel 2f on a (H, W, D) total: (left, right)
+    dicts of (H, W) int32 maps (WTA_LEFT / WTA_RIGHT keys)."""
+    t = total.to(torch.int32)
+    H, W, D = t.shape
+    c0, best, c1 = _wta(t, _C1_CAP)
+    bm = best.clamp(1, D - 2)[..., None]
+    left = {"c0": c0, "best": best, "c1": c1,
+            "cm": t.gather(-1, bm - 1)[..., 0],
+            "cc": t.gather(-1, bm)[..., 0],
+            "cp": t.gather(-1, bm + 1)[..., 0]}
+    dev = t.device
+    xs = torch.arange(W, device=dev)[:, None] + torch.arange(D, device=dev)
+    dd = torch.arange(D, device=dev).expand(W, D)
+    tr = t[:, xs.clamp(max=W - 1), dd]                     # (H, W, D)
+    tr = tr.masked_fill(xs >= W, _RIGHT_OOR)
+    r0, rbest, r1 = _wta(tr, _C1_CAP)
+    right = {"c0": r0, "best": rbest, "c1": r1}
+    left = {k: v.to(torch.int32) for k, v in left.items()}
+    right = {k: v.to(torch.int32) for k, v in right.items()}
+    return left, right
+
+
+def total_wta_reference(cost, partial, p1: int = 10, p2: int = 120,
+                        num_paths: int = 8):
+    """Plain version of kernel 2f: up paths onto `partial`, then both WTAs."""
+    return wta_maps_reference(total_reference(cost, partial, p1, p2,
+                                              num_paths))
+
+
+# --------------------------------------------------------------------------
+# argument checks and kernel launches
+# --------------------------------------------------------------------------
+
+def _check_penalties(p1: int, p2: int, num_paths: int):
+    if num_paths not in (4, 8):
+        raise ValueError(f"num_paths must be 4 or 8, got {num_paths}")
+    # a path value is <= 64 + P2; the 8-path sum must fit int16
+    if not (0 <= p1 and 0 <= p2 and 8 * (64 + p2) <= 32767):
+        raise ValueError(f"penalties out of range: P1={p1}, P2={p2}")
+
+
+def _check_volume(name, t, dtype, shape=None):
+    if t.dim() != 3 or t.dtype != dtype:
+        raise TypeError(f"{name} must be a 3-D {dtype} tensor, got "
+                        f"{t.dtype} {tuple(t.shape)}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    D = t.shape[2]
+    if not 4 <= D <= MAX_DISP:
+        raise ValueError(f"disparity count {D} outside [4, {MAX_DISP}]")
+
+
+def _device_of(*ts):
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError("all SGM operands must share a device")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"SGM kernels have no implementation for {dev}")
+    return dev
+
+
+def _launch(lib_name, fn_name, dev, ptrs, ints):
+    """Call a C entry `fn(ptrs..., ints..., stream)` of csrc/<lib_name>.cu
+    on the current stream; raise if it returns a CUDA error."""
+    fn = getattr(cuda_build.load_library(lib_name), fn_name)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
+        [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: cudaError {rc}")
+
+
+def census_cost(left, right, max_disp: int):
+    """Kernel 2c: (H, W) float32 left/right -> (H, W, D) uint8 volume."""
+    if left.dim() != 2 or left.dtype != torch.float32 \
+            or right.shape != left.shape or right.dtype != torch.float32:
+        raise TypeError("left and right must be (H, W) float32 of one shape")
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("left and right must be contiguous")
+    if not 4 <= max_disp <= MAX_DISP:
+        raise ValueError(f"max_disp {max_disp} outside [4, {MAX_DISP}]")
+    if left.shape[0] > 65535:
+        raise ValueError(f"image height {left.shape[0]} > 65535")
+    dev = _device_of(left, right)
+    if dev.type == "cpu":
+        return census_cost_reference(left, right, max_disp)
+    H, W = left.shape
+    words = torch.empty((4, H, W), dtype=torch.int32, device=dev)
+    vol = torch.empty((H, W, max_disp), dtype=torch.uint8, device=dev)
+    _launch("sgm_census", "sgm_census_cost_launch", dev,
+            (left, right, words, vol), (H, W, max_disp))
+    census_cost.launches += 1
+    return vol
+
+
+census_cost.launches = 0
+
+
+def sgm_horizontal(cost, p1: int = 10, p2: int = 120):
+    """Kernel 2d: left->right + right->left path sum, (H, W, D) int16."""
+    _check_volume("cost", cost, torch.uint8)
+    _check_penalties(p1, p2, 8)
+    dev = _device_of(cost)
+    if dev.type == "cpu":
+        return horizontal_reference(cost, p1, p2)
+    H, W, D = cost.shape
+    out = torch.empty((H, W, D), dtype=torch.int16, device=dev)
+    _launch("sgm_aggregate", "sgm_horizontal_launch", dev, (cost, out),
+            (H, W, D, p1, p2))
+    sgm_horizontal.launches += 1
+    return out
+
+
+sgm_horizontal.launches = 0
+
+
+def sgm_partial(cost, hsum, p1: int = 10, p2: int = 120,
+                num_paths: int = 8):
+    """Kernel 2e: hsum + down (+ both down diagonals), (H, W, D) int16."""
+    _check_volume("cost", cost, torch.uint8)
+    _check_volume("hsum", hsum, torch.int16, cost.shape)
+    _check_penalties(p1, p2, num_paths)
+    dev = _device_of(cost, hsum)
+    if dev.type == "cpu":
+        return partial_reference(cost, hsum, p1, p2, num_paths)
+    H, W, D = cost.shape
+    out = torch.empty((H, W, D), dtype=torch.int16, device=dev)
+    _launch("sgm_aggregate", "sgm_partial_launch", dev, (cost, hsum, out),
+            (H, W, D, p1, p2, int(num_paths >= 8)))
+    sgm_partial.launches += 1
+    return out
+
+
+sgm_partial.launches = 0
+
+
+def sgm_total_wta(cost, partial, p1: int = 10, p2: int = 120,
+                  num_paths: int = 8):
+    """Kernel 2f: up paths onto `partial` (the full path sum, kept in a
+    device scratch volume), then the left and right WTA maps.  Returns
+    (left, right) dicts of (H, W) int32 maps."""
+    _check_volume("cost", cost, torch.uint8)
+    _check_volume("partial", partial, torch.int16, cost.shape)
+    _check_penalties(p1, p2, num_paths)
+    dev = _device_of(cost, partial)
+    if dev.type == "cpu":
+        return total_wta_reference(cost, partial, p1, p2, num_paths)
+    H, W, D = cost.shape
+    total = torch.empty((H, W, D), dtype=torch.int16, device=dev)
+    maps = torch.empty((9, H, W), dtype=torch.int32, device=dev)
+    _launch("sgm_aggregate", "sgm_total_wta_launch", dev,
+            (cost, partial, total, maps), (H, W, D, p1, p2,
+                                           int(num_paths >= 8)))
+    sgm_total_wta.launches += 1
+    left = dict(zip(WTA_LEFT, maps[:6]))
+    right = dict(zip(WTA_RIGHT, maps[6:]))
+    return left, right
+
+
+sgm_total_wta.launches = 0
+
+KERNELS = (census_cost, sgm_horizontal, sgm_partial, sgm_total_wta)
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0

@@ -195,6 +195,24 @@ def detect_octave(stack, octave, cfg: SiftConfig, budget):
             "sigma": sigma, "score": top, "resp": resp_ref, "mask": mask}
 
 
+def _bilinear(img, xy):
+    """Bilinear sample of a (H, W) image at (..., 2) float (x, y) coords,
+    clipped to [0, W - 1.001] x [0, H - 1.001]."""
+    H, W = img.shape
+    x = xy[..., 0].clamp(0.0, W - 1.001)
+    y = xy[..., 1].clamp(0.0, H - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = x - x0
+    fy = y - y0
+    v00 = img[y0, x0]
+    v01 = img[y0, x0 + 1]
+    v10 = img[y0 + 1, x0]
+    v11 = img[y0 + 1, x0 + 1]
+    return (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy)
+            + v10 * (1 - fx) * fy + v11 * fx * fy)
+
+
 def _grad_stack(stack):
     """Central-difference gradients of a (B, L, H, W) Gaussian stack."""
     gx = torch.zeros_like(stack)

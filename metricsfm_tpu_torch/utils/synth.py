@@ -178,3 +178,55 @@ def ate_vs_gt(est_centers: np.ndarray, gt_centers: np.ndarray) -> float:
     err = np.linalg.norm(aligned - gt_centers, axis=1).mean()
     extent = np.linalg.norm(gt_centers - gt_centers.mean(0), axis=1).max()
     return float(err / max(extent, 1e-9))
+
+
+def stereo_pair(rng: np.random.Generator, H: int = 96, W: int = 160,
+                disp_bg: float = 6.0, disp_fg: float = 16.0):
+    """Rectified pair with a known piecewise-constant disparity (the scene
+    of tests/test_sgm_dense.py's textured_scene, vectorized).
+
+    The left view is uniform noise smoothed by a 3-tap box along each axis
+    (zero context); the disparity is `disp_bg` with a `disp_fg` block over
+    the middle third of the rows and half of the columns.  The right view
+    is the left forward-warped (left pixel x lands on right pixel x - d;
+    of several landing on one pixel the rightmost source wins), and holes
+    take the last filled value to their left (the row's first left pixel
+    before any).  Returns (left, right, disp) float32 (H, W).
+    """
+    tex = rng.uniform(0, 1, size=(H, W))
+    for ax in (0, 1):
+        p = np.pad(tex, [(1, 1) if a == ax else (0, 0) for a in range(2)])
+        n = tex.shape[ax]
+        tex = (np.take(p, range(0, n), ax) + np.take(p, range(1, n + 1), ax)
+               + np.take(p, range(2, n + 2), ax)) / 3.0
+    left = tex.astype(np.float32)
+    disp = np.full((H, W), disp_bg, np.float32)
+    disp[H // 3: 2 * H // 3, W // 4: 3 * W // 4] = disp_fg
+    ys, xs = np.mgrid[0:H, 0:W]
+    xr = xs - disp.astype(np.int64)
+    ok = (xr >= 0) & (xr < W)
+    src = np.full((H, W), -1, np.int64)        # source column per target
+    np.maximum.at(src, (ys[ok], xr[ok]), xs[ok])
+    last = np.maximum.accumulate(np.where(src >= 0, xs, -1), axis=1)
+    col = np.where(last >= 0, src[ys, np.maximum(last, 0)], 0)
+    right = left[ys, col]
+    return left, right, disp
+
+
+def write_stereo_sure(path: str, names, width: int, height: int,
+                      focal: float, baseline: float):
+    """SURE pose file of a rectified two-view rig: K = diag(f, f, 1),
+    R = I for both, the second camera `baseline` along +x (t = -c), so
+    rectification is the identity and the ground-truth disparity holds."""
+    K = np.diag([focal, focal, 1.0])
+    with open(path, "w") as f:
+        for _ in range(8):
+            f.write("#\n")
+        for name, cx in zip(names, (0.0, baseline)):
+            f.write(f"{name} {width} {height}\n")
+            for row in K:
+                f.write(" ".join(str(v) for v in row) + "\n")
+            f.write("0 0 0 0 0\n")
+            f.write(f"{-cx} 0.0 0.0\n")
+            for row in np.eye(3):
+                f.write(" ".join(str(v) for v in row) + "\n")

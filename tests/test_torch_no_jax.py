@@ -19,6 +19,9 @@ MODULES = [
     "metricsfm_tpu_torch.models.database",
     "metricsfm_tpu_torch.ba.lm",
     "metricsfm_tpu_torch.ops.sift",
+    "metricsfm_tpu_torch.ops.sgm",
+    "metricsfm_tpu_torch.ops.sgm_kernel",
+    "metricsfm_tpu_torch.models.dense",
     "metricsfm_tpu_torch.io.exports",
     "metricsfm_tpu_torch.utils.synth",
 ]

@@ -1,0 +1,281 @@
+"""SGM stereo on the PyTorch port against the JAX package, on the CPU.
+
+CPU tensors run each kernel's plain version (ops/sgm_kernel), so these
+tests pin the contract the CUDA kernels are held to on the card:
+  * census + cost volume (2c) equal to the JAX XLA functions and to the
+    Pallas census_cost_pallas in interpret mode (exact integers);
+  * the horizontal (2d), partial (2e) and total (2f) path sums equal to a
+    literal per-pixel recurrence, and aggregate_paths to the JAX scan;
+  * the 9 WTA maps (2f) equal to aggregate_wta_pallas in interpret mode;
+  * stereo_sgm equal to the JAX fused branch (census_cost_pallas ->
+    aggregate_wta_pallas -> _disp_from_wta -> median3 -> lr_consistency,
+    interpret mode): disparity within 1e-5, valid masks equal;
+  * 3a: against the JAX CPU branch (subpixel right disparity) the left
+    disparities agree and the valid masks differ only where the right
+    subpixel offset decides the 1 px L/R check.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metricsfm_tpu.ops import sgm as jsgm
+from metricsfm_tpu.ops.pallas import sgm_kernel as jk
+from metricsfm_tpu_torch.ops import sgm, sgm_kernel
+from metricsfm_tpu_torch.utils import synth
+from tests.test_sgm_dense import _aggregate_bruteforce
+from tests.torch_threads import torch_threads  # noqa: F401
+
+
+def _images(rng, H, W):
+    return (rng.uniform(0, 1, (H, W)).astype(np.float32),
+            rng.uniform(0, 1, (H, W)).astype(np.float32))
+
+
+def _paths_bruteforce(cost, dirs, p1=10, p2=120):
+    """Literal per-pixel SGM recurrence summed over the (dy, dx) path
+    directions `dirs` (the predecessor of (y, x) is (y - dy, x - dx))."""
+    H, W, D = cost.shape
+    cost = cost.astype(np.int64)
+    total = np.zeros((H, W, D), np.int64)
+    for dy, dx in dirs:
+        L = np.zeros((H, W, D), np.int64)
+        for y in (range(H) if dy >= 0 else range(H - 1, -1, -1)):
+            for x in (range(W) if dx >= 0 else range(W - 1, -1, -1)):
+                py, px = y - dy, x - dx
+                if 0 <= py < H and 0 <= px < W:
+                    prev = L[py, px]
+                    m = prev.min()
+                    best = np.minimum(prev, m + p2)
+                    best[1:] = np.minimum(best[1:], prev[:-1] + p1)
+                    best[:-1] = np.minimum(best[:-1], prev[1:] + p1)
+                    L[y, x] = cost[y, x] + best - m
+                else:
+                    L[y, x] = cost[y, x]
+        total += L
+    return total
+
+
+HORIZONTAL = [(0, 1), (0, -1)]
+DOWN = {4: [(1, 0)], 8: [(1, 0), (1, 1), (1, -1)]}
+UP = {4: [(-1, 0)], 8: [(-1, 0), (-1, -1), (-1, 1)]}
+
+
+def test_census_words_match_jax(rng):
+    img = rng.uniform(0, 1, (21, 33)).astype(np.float32)
+    img[3, 4] = 0.0                  # a zero centre against zero context
+    want = np.asarray(jsgm.census_transform(jnp.asarray(img))).astype(np.int64)
+    got = sgm.census_transform(torch.tensor(img)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("H,W,D", [(19, 29, 24), (13, 37, 48)])
+def test_cost_volume_matches_jax_and_pallas(rng, H, W, D):
+    """Exact against the XLA volume and the fused Pallas kernel cropped to
+    (H, W, D) (interpret mode)."""
+    L, R = _images(rng, H, W)
+    got = sgm_kernel.census_cost(torch.tensor(L), torch.tensor(R), D)
+    assert got.dtype == torch.uint8 and got.shape == (H, W, D)
+    got = got.numpy().astype(np.int64)
+    want = np.asarray(jsgm.matching_cost_volume(
+        jsgm.census_transform(jnp.asarray(L)),
+        jsgm.census_transform(jnp.asarray(R)), D)).astype(np.int64)
+    np.testing.assert_array_equal(got, want)
+    pallas = np.asarray(jk.census_cost_pallas(jnp.asarray(L), jnp.asarray(R),
+                                              D, interpret=True))
+    np.testing.assert_array_equal(got, pallas[:H, :W, :D].astype(np.int64))
+
+
+@pytest.mark.parametrize("num_paths", [4, 8])
+def test_aggregate_paths_matches_jax_and_bruteforce(rng, num_paths):
+    cost = rng.integers(0, 64, size=(10, 12, 8))
+    want = _aggregate_bruteforce(cost.astype(np.int16), num_paths=num_paths)
+    got = sgm.aggregate_paths(torch.tensor(cost.astype(np.uint8)),
+                              num_paths=num_paths)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    jax_agg = np.asarray(jsgm.aggregate_paths(
+        jnp.asarray(cost.astype(np.int16)), num_paths=num_paths))
+    np.testing.assert_array_equal(got.numpy(), jax_agg)
+
+
+@pytest.mark.parametrize("num_paths", [4, 8])
+def test_stage_sums_match_bruteforce(rng, num_paths):
+    """2d = the two horizontal paths, 2e = 2d + the down paths, and the
+    total inside 2f = 2e + the up paths, each with P1/P2 other than the
+    defaults and a ragged D."""
+    cost = rng.integers(0, 65, size=(9, 11, 7))
+    c = torch.tensor(cost.astype(np.uint8))
+    p1, p2 = 7, 90
+    h = sgm_kernel.sgm_horizontal(c, p1, p2)
+    np.testing.assert_array_equal(
+        h.numpy(), _paths_bruteforce(cost, HORIZONTAL, p1, p2))
+    part = sgm_kernel.sgm_partial(c, h, p1, p2, num_paths)
+    np.testing.assert_array_equal(
+        part.numpy(),
+        _paths_bruteforce(cost, HORIZONTAL + DOWN[num_paths], p1, p2))
+    tot = sgm_kernel.total_reference(c, part, p1, p2, num_paths)
+    np.testing.assert_array_equal(
+        tot.numpy(), _paths_bruteforce(
+            cost, HORIZONTAL + DOWN[num_paths] + UP[num_paths], p1, p2))
+
+
+def _wta_vs_pallas(jl, jr, tl, tr):
+    for k in sgm_kernel.WTA_LEFT:
+        np.testing.assert_array_equal(tl[k].numpy(),
+                                      np.asarray(jl[k]).astype(np.int64),
+                                      err_msg=f"left {k}")
+    for k in sgm_kernel.WTA_RIGHT:
+        np.testing.assert_array_equal(tr[k].numpy(),
+                                      np.asarray(jr[k]).astype(np.int64),
+                                      err_msg=f"right {k}")
+
+
+@pytest.mark.parametrize("H,W,D", [(24, 40, 16), (13, 29, 37)])
+def test_wta_maps_match_pallas(rng, H, W, D):
+    """The 9 integer maps of kernel 2f against aggregate_wta_pallas
+    (interpret, f32 storage): exact."""
+    cost = rng.integers(0, 64, size=(H, W, D))
+    jl, jr = jk.aggregate_wta_pallas(jnp.asarray(cost.astype(np.float32)),
+                                     10, 120, 8, interpret=True,
+                                     storage=jnp.float32)
+    c = torch.tensor(cost.astype(np.uint8))
+    part = sgm_kernel.sgm_partial(c, sgm_kernel.sgm_horizontal(c))
+    tl, tr = sgm_kernel.sgm_total_wta(c, part)
+    assert all(v.dtype == torch.int32 and v.shape == (H, W)
+               for v in list(tl.values()) + list(tr.values()))
+    _wta_vs_pallas(jl, jr, tl, tr)
+
+
+def _jax_fused(L, R, D, num_paths=8):
+    """The JAX package's fused accelerator branch of stereo_sgm
+    (metricsfm_tpu/ops/sgm.py:362-394), Pallas in interpret mode."""
+    H, W = L.shape
+    cp = jk.census_cost_pallas(jnp.asarray(L), jnp.asarray(R), D,
+                               packed=True, interpret=True)
+    wl, wr = jk.aggregate_wta_pallas(cp, 10, 120, num_paths, packed=True,
+                                     real_shape=(H, W, D), interpret=True)
+    dl, ul = jsgm._disp_from_wta(wl, D, 0.96, True)
+    dr, _ = jsgm._disp_from_wta(wr, D, 0.96, False)
+    dl, dr = jsgm.median3(dl), jsgm.median3(dr)
+    valid = ul & jsgm.lr_consistency(dl, dr)
+    return wl, wr, np.asarray(jnp.where(valid, dl, -1.0)), np.asarray(valid)
+
+
+def test_stereo_sgm_matches_jax_fused_branch():
+    L, R, _ = synth.stereo_pair(np.random.default_rng(1), H=48, W=64,
+                                disp_bg=3, disp_fg=9)
+    D = 16
+    jl, jr, jdisp, jvalid = _jax_fused(L, R, D)
+    tL, tR = torch.tensor(L), torch.tensor(R)
+    c = sgm_kernel.census_cost(tL, tR, D)
+    tl, tr = sgm_kernel.sgm_total_wta(
+        c, sgm_kernel.sgm_partial(c, sgm_kernel.sgm_horizontal(c)))
+    _wta_vs_pallas(jl, jr, tl, tr)
+    disp, valid = sgm.stereo_sgm(tL, tR, max_disp=D)
+    np.testing.assert_array_equal(valid.numpy(), jvalid)
+    np.testing.assert_allclose(disp.numpy(), jdisp, atol=1e-5, rtol=0)
+    assert 0.5 < valid.numpy().mean()
+
+
+def test_3a_right_subpixel_only_moves_the_lr_check():
+    """3a, settled: the port's right disparity is the fused branch's
+    integer WTA; the JAX CPU branch takes it with subpixel.  Left
+    disparities agree wherever both are valid, and every pixel whose
+    validity differs is one where the integer and the subpixel right
+    disparity give different answers to the 1 px L/R check.  On this
+    64x96 / D=16 scene that is 0.13 % of the pixels (8 of 6,144)."""
+    L, R, _ = synth.stereo_pair(np.random.default_rng(2), H=64, W=96,
+                                disp_bg=4, disp_fg=10)
+    D = 16
+    jdisp, jvalid = jsgm.stereo_sgm(jnp.asarray(L), jnp.asarray(R),
+                                    max_disp=D)
+    jdisp, jvalid = np.asarray(jdisp), np.asarray(jvalid)
+    tL, tR = torch.tensor(L), torch.tensor(R)
+    disp, valid = sgm.stereo_sgm(tL, tR, max_disp=D)
+    disp, valid = disp.numpy(), valid.numpy()
+    both = valid & jvalid
+    np.testing.assert_allclose(disp[both], jdisp[both], atol=1e-5, rtol=0)
+
+    # the two L/R checks, from the port's own pieces
+    agg = sgm.aggregate_paths(sgm_kernel.census_cost(tL, tR, D))
+    dl, uniq = sgm.winner_takes_all(agg)
+    dl = sgm.median3(dl)
+    tl, tr = sgm_kernel.wta_maps_reference(agg)
+    dr_int = sgm.median3(sgm._disp_from_wta(tr, D, 0.96, False)[0])
+    H, W = L.shape
+    cost_r = torch.full((H, W, D), 30000, dtype=torch.int16)
+    for d in range(D):
+        cost_r[:, :W - d, d] = agg[:, d:, d]
+    dr_sub = sgm.median3(sgm.winner_takes_all(cost_r)[0])
+    lr_int = (uniq & sgm.lr_consistency(dl, dr_int)).numpy()
+    lr_sub = (uniq & sgm.lr_consistency(dl, dr_sub)).numpy()
+    np.testing.assert_array_equal(lr_int, valid)
+    np.testing.assert_array_equal(lr_sub, jvalid)
+    differ = valid != jvalid
+    assert (lr_int != lr_sub)[differ].all()
+    assert differ.sum() == 11, differ.sum()
+
+
+def test_winner_takes_all_matches_jax(rng):
+    for dtype in (np.int16, np.float32):
+        agg = rng.integers(0, 400, size=(9, 13, 12)).astype(dtype)
+        for sub in (True, False):
+            jd, jv = jsgm.winner_takes_all(jnp.asarray(agg), 0.96, sub)
+            d, v = sgm.winner_takes_all(torch.tensor(agg), 0.96, sub)
+            np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=1e-5,
+                                       rtol=0)
+            np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+
+
+def test_tail_ops_match_jax(rng):
+    x = rng.uniform(0, 20, (17, 23)).astype(np.float32)
+    y = rng.uniform(0, 20, (17, 23)).astype(np.float32)
+    x[2, :6] = [0.5, 1.5, 2.5, 3.5, 4.5, 5.5]      # round half to even
+    np.testing.assert_array_equal(sgm.median3(torch.tensor(x)).numpy(),
+                                  np.asarray(jsgm.median3(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        sgm.lr_consistency(torch.tensor(x), torch.tensor(y)).numpy(),
+        np.asarray(jsgm.lr_consistency(jnp.asarray(x), jnp.asarray(y))))
+    disp = x - 3.0
+    depth = sgm.disparity_to_depth(torch.tensor(disp), 80.0, 0.5)
+    jdepth = np.asarray(jsgm.disparity_to_depth(jnp.asarray(disp), 80.0, 0.5))
+    np.testing.assert_allclose(depth.numpy(), jdepth, rtol=1e-6, atol=0)
+    K_inv = np.linalg.inv(np.array([[80.0, 0, 11], [0, 80.0, 8], [0, 0, 1]]))
+    ang = 0.3
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                  [-np.sin(ang), 0, np.cos(ang)]])
+    t = np.array([0.2, -0.1, 0.4])
+    f32 = [a.astype(np.float32) for a in (K_inv, R, t)]
+    Xw, m = sgm.depth_to_points(depth, *map(torch.tensor, f32), stride=2)
+    jX, jm = jsgm.depth_to_points(jnp.asarray(jdepth),
+                                  *map(jnp.asarray, f32), stride=2)
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(Xw.numpy(), np.asarray(jX), rtol=1e-5,
+                               atol=1e-3)
+
+
+def test_wrappers_check_arguments():
+    """Wrong types and devices raise; CPU calls count no kernel launch."""
+    c = torch.zeros((4, 5, 8), dtype=torch.uint8)
+    sgm_kernel.reset_launches()
+    with pytest.raises(TypeError):
+        sgm_kernel.sgm_horizontal(c.to(torch.int16))
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_horizontal(c[:, :, :3].contiguous())
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_horizontal(c.transpose(0, 1))
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_horizontal(c.to("meta"))
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_partial(c, torch.zeros((4, 5, 7), dtype=torch.int16))
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_total_wta(c, torch.zeros((4, 5, 8),
+                                                dtype=torch.int16),
+                                 num_paths=6)
+    with pytest.raises(TypeError):
+        sgm_kernel.census_cost(torch.zeros(4, 5, dtype=torch.float64),
+                               torch.zeros(4, 5, dtype=torch.float64), 8)
+    h = sgm_kernel.sgm_horizontal(c)
+    sgm_kernel.sgm_total_wta(c, sgm_kernel.sgm_partial(c, h))
+    assert all(k.launches == 0 for k in sgm_kernel.KERNELS)
