@@ -9,20 +9,29 @@ and the script exits non-zero:
      all started together);
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, and time both: knn2 (2a) at the sfm
-     verify batch; census_cost (2c), sgm_horizontal (2d), sgm_partial (2e)
-     and sgm_total_wta (2f) at 768x1024 / D=128 and at a ragged 37x61 /
-     D=48, exact on every integer output and within 1e-5 on the disparity
-     after the torch tail;
+     verify batch; census_cost (2c), sgm_horizontal (2d), sgm_partial (2e),
+     sgm_total_wta (2f), sgm_total (2g) and wta (2h) at 768x1024 / D=128
+     and at a ragged 37x61 / D=48, exact on every output (2h also on the
+     skewed right volume, an int32 and a float32 volume) and within 1e-5
+     on the disparity after the torch tail;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
      scene with 4096 keypoints per image, with the knn2 launch count reset
      just before and read just after, and check the reconstruction against
      the scene's ground truth;
-  5. drive `metricsfm_tpu_torch.cli dense` on a synthetic rectified
-     768x1024 pair with known disparity (24 px background, 72 px block),
-     D=128, written through the SURE pose format, with every SGM kernel's
-     launch count reset just before and read just after, and check the
-     disparity against the ground truth (the JAX test's gates);
-  6. print the kernel table, the card line and the result line.
+  5. drive `metricsfm_tpu_torch.cli dense` (SGM, the fused path) on a
+     synthetic rectified 768x1024 pair with known disparity (24 px
+     background, 72 px block), D=128, written through the SURE pose
+     format, with every SGM kernel's launch count reset just before and
+     read just after, and check the disparity against the ground truth
+     (the JAX test's gates);
+  6. drive the SGM volume path (`ops.sgm.stereo_sgm_volume`: 2c, 2d, 2e,
+     2g, then 2h on the left and on the skewed right volume) on the same
+     pair, with the counts reset just before and read just after and every
+     plain version barred, check the same gates, and count the pixels
+     whose validity differs from the fused path's;
+  7. drive `cli dense --method elas` (plain torch, no kernel) on the same
+     folder and check the ELAS test's gates;
+  8. print the kernel table, the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
 of each end-to-end path.  The last line of standard output is the result:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -30,6 +39,7 @@ of each end-to-end path.  The last line of standard output is the result:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -207,13 +217,41 @@ SGM_ROWS = (
      "metricsfm_tpu/ops/pallas/sgm_kernel.py:156"),
     ("sgm_total_wta", "sgm_total_wta", "sgm_aggregate.cu",
      "metricsfm_tpu/ops/pallas/sgm_kernel.py:283"),
+    ("sgm_total", "sgm_total", "sgm_aggregate.cu",
+     "metricsfm_tpu/ops/pallas/sgm_kernel.py:761"),
+    ("wta", "wta", "sgm_aggregate.cu",
+     "metricsfm_tpu/ops/pallas/sgm_kernel.py:358"),
 )
 
 
+def _map_pairs(what, got, want):
+    """(label, kernel tensor, plain tensor) for every map of a WTA result
+    (a dict, or a (left, right) pair of dicts), or the one tensor."""
+    if isinstance(want, dict):
+        return [(f"{what} {k}", got[k], want[k]) for k in want]
+    if isinstance(want, tuple):
+        return _map_pairs(f"{what} left", got[0], want[0]) + \
+            _map_pairs(f"{what} right", got[1], want[1])
+    return [(what, got, want)]
+
+
+def _check_equal(label, pairs):
+    import torch
+    for what, a, b in pairs:
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            n_bad = int((a.double() != b.double()).sum()) \
+                if a.shape == b.shape else -1
+            raise AssertionError(f"{label}: {what} differs from the plain "
+                                 f"version ({n_bad} elements, {a.dtype} vs "
+                                 f"{b.dtype})")
+
+
 def compare_sgm(H, W, D, seed, label, time_it):
-    """Kernels 2c-2f against their plain versions on the card, each fed the
-    same inputs; every integer output must be equal.  Returns
-    {name: (max_abs_err, ms, plain_ms)} (times only when time_it)."""
+    """Kernels 2c-2h against their plain versions on the card, each fed the
+    same inputs; every output must be equal (2h also on an int32 and a
+    float32 volume, and on the skewed right volume of the volume path).
+    Returns {name: (max_abs_err, ms, plain_ms)} (times only when
+    time_it)."""
     import numpy as np
     import torch
     from metricsfm_tpu_torch.ops import sgm
@@ -228,7 +266,9 @@ def compare_sgm(H, W, D, seed, label, time_it):
     cost_p = sk.census_cost_reference(L, R, D)
     h_p = sk.horizontal_reference(cost_p)
     part_p = sk.partial_reference(cost_p, h_p)
-    wl_p, wr_p = sk.total_wta_reference(cost_p, part_p)
+    total_p = sk.total_reference(cost_p, part_p)
+    wl_p, wr_p = sk.wta_maps_reference(total_p)
+    wta_p = sk.wta_reference(total_p, 30000)
     calls = {   # name: (kernel call, plain call, plain result)
         "census_cost": (lambda: sk.census_cost(L, R, D),
                         lambda: sk.census_cost_reference(L, R, D), cost_p),
@@ -239,25 +279,34 @@ def compare_sgm(H, W, D, seed, label, time_it):
         "sgm_total_wta": (lambda: sk.sgm_total_wta(cost_p, part_p),
                           lambda: sk.total_wta_reference(cost_p, part_p),
                           (wl_p, wr_p)),
+        "sgm_total": (lambda: sk.sgm_total(cost_p, part_p),
+                      lambda: sk.total_reference(cost_p, part_p), total_p),
+        "wta": (lambda: sk.wta(total_p, 30000),
+                lambda: sk.wta_reference(total_p, 30000), wta_p),
     }
     out = {}
     for name, (kern, plain, want) in calls.items():
         got = kern()
         torch.cuda.synchronize()
-        if name == "sgm_total_wta":
-            pairs = [(f"left {k}", got[0][k], want[0][k]) for k in want[0]] \
-                + [(f"right {k}", got[1][k], want[1][k]) for k in want[1]]
-        else:
-            pairs = [(name, got, want)]
-        for what, a, b in pairs:
-            if a.dtype != b.dtype or a.shape != b.shape or \
-                    not torch.equal(a, b):
-                n_bad = int((a.long() != b.long()).sum()) \
-                    if a.shape == b.shape else -1
-                raise AssertionError(f"{label}: {what} differs from the "
-                                     f"plain version ({n_bad} elements, "
-                                     f"{a.dtype} vs {b.dtype})")
+        _check_equal(label, _map_pairs(name, got, want))
         out[name] = [0.0, None, None]
+    # 2h on the other volumes it takes: the skewed right volume of the
+    # volume path (30000 fills), int32 and float32 volumes with ties
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    others = {
+        "right int16": sk.skew_right(total_p, 30000),
+        "int32": torch.randint(-50_000, 50_000, (H, W, D), generator=gen,
+                               device=dev, dtype=torch.int32),
+        "float32": torch.randint(0, 4000, (H, W, D), generator=gen,
+                                 device=dev).float() * 0.37,
+    }
+    for what, vol in others.items():
+        cap = 1e9 if vol.is_floating_point() else 30000
+        got = sk.wta(vol, cap)
+        torch.cuda.synchronize()
+        _check_equal(label, _map_pairs(f"wta {what}", got,
+                                       sk.wta_reference(vol, cap)))
+    del others
     # the disparity after the torch tail, kernel maps vs plain maps
     wl, wr = sk.sgm_total_wta(cost_p, part_p)
     d_k, v_k = sgm.disparity_from_wta(wl, wr, D)
@@ -266,9 +315,11 @@ def compare_sgm(H, W, D, seed, label, time_it):
     if not torch.equal(v_k, v_p) or derr > 1e-5:
         raise AssertionError(f"{label}: disparity differs ({derr})")
     out["sgm_total_wta"][0] = derr
-    print(f"  sgm {label}: 2c-2f equal to plain on every integer output "
-          f"(volume, hf+hb, partial, 9 WTA maps); disparity max err "
-          f"{derr:.3g}, valid {float(v_k.float().mean()):.4f}", flush=True)
+    print(f"  sgm {label}: 2c-2h equal to plain on every output (volume, "
+          f"hf+hb, partial, 9 WTA maps, total, 6 WTA maps of the int16 "
+          f"total, its skewed right volume, an int32 and a float32 volume); "
+          f"disparity max err {derr:.3g}, valid "
+          f"{float(v_k.float().mean()):.4f}", flush=True)
     if time_it:
         for name, (kern, plain, _) in calls.items():
             # plain versions are Python loops of small launches (~0.1-1 s a
@@ -284,7 +335,7 @@ def compare_sgm(H, W, D, seed, label, time_it):
 
 
 def sgm_phase():
-    """Phase 3 for kernels 2c-2f; returns their table rows (no launches)."""
+    """Phase 3 for kernels 2c-2h; returns their table rows (no launches)."""
     ragged = compare_sgm(37, 61, 48, seed=1, label="ragged 37x61x48",
                          time_it=False)
     full = compare_sgm(768, 1024, 128, seed=0, label="768x1024x128",
@@ -319,9 +370,34 @@ def write_dense_fold(fold, left, right, focal, baseline):
             np.uint8)).save(os.path.join(fold, name))
 
 
-def dense_phase(D=128, runs=2):
-    """Run `cli dense` on the synthetic pair `runs` times (fresh folders;
-    the last run is timed); returns the last run's (launch counts, stats)."""
+def dense_region(H, W):
+    """The pixels the gates read: away from the left band (x < 24, where
+    the background's match leaves the image) and the borders."""
+    import numpy as np
+    region = np.zeros((H, W), bool)
+    region[8:-8, 64:-8] = True
+    return region
+
+
+def dense_gates(disp, valid, disp_gt, within2_min, what):
+    """The JAX tests' accuracy gates (tests/test_sgm_dense.py: |err| < 2 px
+    share > 0.8; tests/test_elas.py:59-62: > 0.9); returns (valid share,
+    median |err|, |err| < 2 px share)."""
+    import numpy as np
+    sel = valid & dense_region(*valid.shape)
+    err = np.abs(disp - disp_gt)[sel]
+    share, med = float(sel.mean()), float(np.median(err))
+    within2 = float((err < 2).mean())
+    if share <= 0.3 or med >= 1.0 or within2 <= within2_min:
+        raise AssertionError(f"{what} accuracy gates failed: valid {share}, "
+                             f"median {med}, <2px {within2}")
+    return share, med, within2
+
+
+def dense_phase(D=128, runs=2, method="sgm"):
+    """Run `cli dense --method <method>` on the synthetic pair `runs` times
+    (fresh folders; the last run is timed); returns the last run's (SGM
+    kernel launch counts, stats)."""
     import numpy as np
     import torch
     from metricsfm_tpu_torch import cli
@@ -331,8 +407,6 @@ def dense_phase(D=128, runs=2):
     left, right, disp_gt = dense_scene()
     H, W = left.shape
     focal, baseline = 1.1 * W, 0.5
-    region = np.zeros((H, W), bool)
-    region[8:-8, 64:-8] = True       # away from the left band (x < 24)
     for run in range(runs):
         fold = tempfile.mkdtemp(prefix="msf_smoke_dense_")
         try:
@@ -342,8 +416,8 @@ def dense_phase(D=128, runs=2):
             torch.cuda.synchronize()
             sgm_kernel.reset_launches()
             t0 = time.perf_counter()
-            clouds = cli.main(["dense", fold, "--disp", str(D),
-                               "--device", "cuda"])
+            clouds = cli.main(["dense", fold, "--disp", str(D), "--method",
+                               method, "--device", "cuda"])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = {k.__name__: k.launches for k in sgm_kernel.KERNELS}
@@ -353,29 +427,109 @@ def dense_phase(D=128, runs=2):
         valid = depth > 0
         disp = np.where(valid, 20.0 * focal * baseline
                         / np.maximum(depth, 1e-6), -1.0)
-        sel = valid & region
-        err = np.abs(disp - disp_gt)[sel]
-        share, med = float(sel.mean()), float(np.median(err))
-        within2 = float((err < 2).mean())
+        share, med, within2 = dense_gates(
+            disp, valid, disp_gt, 0.9 if method == "elas" else 0.8,
+            f"dense {method}")
         peak = torch.cuda.max_memory_allocated()
         stages = GLOBAL_TRACER.as_dict()
         stereo_s = stages["dense/stereo"]["total_s"]
         label = "warm-up" if run < runs - 1 else "timed"
-        print(f"  dense run {run} ({label}): {dt:.4f} s wall, dense/stereo "
-              f"{stereo_s:.4f} s = {H * W / 1e6 / stereo_s:.3f} MP/s, "
-              f"{len(clouds[0])} points, valid share {share:.4f}, median "
-              f"|err| {med:.4f} px, |err|<2 {within2:.4f}, peak "
-              f"{peak / 2**20:.1f} MiB, launches {launches}", flush=True)
-        if share <= 0.3 or med >= 1.0 or within2 <= 0.8:
-            raise AssertionError(f"dense accuracy gates failed: valid "
-                                 f"{share}, median {med}, <2px {within2}")
+        print(f"  dense {method} run {run} ({label}): {dt:.4f} s wall, "
+              f"dense/stereo {stereo_s:.4f} s = "
+              f"{H * W / 1e6 / stereo_s:.3f} MP/s, {len(clouds[0])} points, "
+              f"valid share {share:.4f}, median |err| {med:.4f} px, "
+              f"|err|<2 {within2:.4f}, peak {peak / 2**20:.1f} MiB, "
+              f"launches {launches}", flush=True)
         stats = {"dense_seconds": dt, "stereo_seconds": stereo_s,
                  "stereo_mp_per_s": H * W / 1e6 / stereo_s,
                  "valid_share": share, "median_err_px": med,
-                 "peak_bytes": peak, "stages": GLOBAL_TRACER.report()}
+                 "within_2px": within2, "peak_bytes": peak,
+                 "stages": GLOBAL_TRACER.report()}
     print("  stage table (timed run):\n" + "\n".join(
         "    " + ln for ln in stats["stages"].splitlines()), flush=True)
     return launches, stats
+
+
+def quantized_pair(left, right, dev):
+    """The pair as `cli dense` reads it back from its 8-bit PNGs."""
+    import numpy as np
+    import torch
+    return [torch.tensor(np.round(np.clip(x, 0, 1) * 255).astype(
+        np.uint8).astype(np.float32) / 255.0, device=dev)
+        for x in (left, right)]
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """Make every plain SGM version raise while the block runs, so a path
+    that reaches one on the card fails instead of running a Python scan."""
+    from metricsfm_tpu_torch.ops import sgm_kernel as sk
+    names = ("census_cost_reference", "horizontal_reference",
+             "partial_reference", "total_reference", "total_wta_reference",
+             "wta_reference")
+    saved = {n: getattr(sk, n) for n in names}
+
+    def barred(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"plain version {name} ran on the card")
+        return fn
+    try:
+        for n in names:
+            setattr(sk, n, barred(n))
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(sk, n, f)
+
+
+VOLUME_LAUNCHES = {"census_cost": 1, "sgm_horizontal": 1, "sgm_partial": 1,
+                   "sgm_total_wta": 0, "sgm_total": 1, "wta": 2}
+
+
+def volume_phase(D=128, runs=2):
+    """Run `stereo_sgm_volume` (path A) on the dense pair `runs` times (the
+    last timed); returns the last run's (launch counts, stats)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import sgm, sgm_kernel
+
+    dev = torch.device("cuda")
+    left, right, disp_gt = dense_scene()
+    H, W = left.shape
+    L, R = quantized_pair(left, right, dev)
+    for run in range(runs):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        sgm_kernel.reset_launches()
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            disp, valid = sgm.stereo_sgm_volume(L, R, max_disp=D)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in sgm_kernel.KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        if launches != VOLUME_LAUNCHES:
+            raise AssertionError(f"volume path launches {launches}, "
+                                 f"expected {VOLUME_LAUNCHES}")
+        share, med, within2 = dense_gates(
+            disp.cpu().numpy(), valid.cpu().numpy(), disp_gt, 0.8,
+            "SGM volume path")
+        label = "warm-up" if run < runs - 1 else "timed"
+        print(f"  volume run {run} ({label}): {dt * 1e3:.3f} ms = "
+              f"{H * W / 1e6 / dt:.3f} MP/s, valid share {share:.4f}, "
+              f"median |err| {med:.4f} px, |err|<2 {within2:.4f}, peak "
+              f"{peak / 2**20:.1f} MiB, launches {launches}", flush=True)
+    fused_disp, fused_valid = sgm.stereo_sgm(L, R, max_disp=D)
+    differ = float((fused_valid != valid).float().mean())
+    both = fused_valid & valid
+    derr = float((fused_disp - disp).abs()[both].max())
+    print(f"  volume vs fused stereo_sgm: valid masks differ on "
+          f"{100 * differ:.4f} % of the pixels, disparity max |diff| "
+          f"{derr:.3g} px where both are valid", flush=True)
+    return launches, {"seconds": dt, "mp_per_s": H * W / 1e6 / dt,
+                      "valid_share": share, "median_err_px": med,
+                      "within_2px": within2, "peak_bytes": peak,
+                      "valid_differs_from_fused": differ}
 
 
 def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
@@ -435,13 +589,14 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
 
 
 def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
-    """One more run of each end-to-end path under torch.profiler: device
-    busy share (sum of kernel time over wall time; one stream, so kernels do
-    not overlap), the top kernels by device time, and a Chrome trace per
-    path in out_dir/{sfm,dense}."""
+    """Two more runs of each end-to-end path under torch.profiler, the
+    second counted: device busy share (sum of device-op time over wall
+    time; one stream, so kernels do not overlap), the top kernels by device
+    time, and a Chrome trace per path in out_dir/<path>."""
     import torch
     from torch.autograd import DeviceType
     from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.ops import sgm
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER, device_trace
 
@@ -449,38 +604,65 @@ def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
         synth.write_scene_images(fold, synth.render_scene(
             seed=0, n_cams=n_cams, width=width, height=height,
             focal=1.1 * width))
-        return ["sfm", fold, "--mode", "web", "--matching", "all",
+        argv = ["sfm", fold, "--mode", "web", "--matching", "all",
                 "--no-resize", "--max-kp", str(max_kp), "--device", "cuda"]
+        return lambda: cli.main(argv)
 
-    def prepare_dense(fold):
+    def prepare_dense(method):
+        def prepare(fold):
+            left, right, _ = dense_scene()
+            write_dense_fold(fold, left, right, 1.1 * left.shape[1], 0.5)
+            argv = ["dense", fold, "--disp", "128", "--method", method,
+                    "--device", "cuda"]
+            return lambda: cli.main(argv)
+        return prepare
+
+    def prepare_volume(fold):
         left, right, _ = dense_scene()
-        write_dense_fold(fold, left, right, 1.1 * left.shape[1], 0.5)
-        return ["dense", fold, "--disp", "128", "--device", "cuda"]
+        L, R = quantized_pair(left, right, torch.device("cuda"))
+        return lambda: sgm.stereo_sgm_volume(L, R, max_disp=128)
 
-    for label, prepare in (("sfm", prepare_sfm), ("dense", prepare_dense)):
-        fold = tempfile.mkdtemp(prefix=f"msf_smoke_prof_{label}_")
+    for label, prepare in (("sfm", prepare_sfm),
+                           ("dense", prepare_dense("sgm")),
+                           ("dense_volume", prepare_volume),
+                           ("dense_elas", prepare_dense("elas"))):
+        folds = [tempfile.mkdtemp(prefix=f"msf_smoke_prof_{label}_")
+                 for _ in range(2)]
         try:
-            argv = prepare(fold)
+            warm, timed = (prepare(f) for f in folds)
             GLOBAL_TRACER.reset()
             torch.cuda.synchronize()
             with device_trace(os.path.join(out_dir, label)) as prof:
-                t0 = time.perf_counter()
-                cli.main(argv)
+                # the tracer records device work only some time after it
+                # starts: an untimed run first, then the counted one
+                warm()
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
+                with torch.profiler.record_function("timed_run"):
+                    t0 = time.perf_counter()
+                    timed()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
         finally:
-            shutil.rmtree(fold, ignore_errors=True)
-        # kernel rows only: operator rows repeat their kernels' device time
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        dev_s = sum(e.self_device_time_total for e in events) / 1e6
-        print(f"  profiled {label}: wall {wall:.3f} s, device busy "
-              f"{dev_s:.3f} s ({100 * dev_s / wall:.1f}%), idle "
-              f"{100 * (1 - dev_s / wall):.1f}% (profiler on)", flush=True)
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
-                  f"x{e.count:<6} {e.key[:90]}", flush=True)
+            for f in folds:
+                shutil.rmtree(f, ignore_errors=True)
+        events = prof.events()
+        span = next(e for e in events if e.name == "timed_run").time_range
+        by_name = {}
+        for e in events:
+            # the range itself also shows on the device timeline
+            if e.device_type == DeviceType.CUDA and e.name != "timed_run" \
+                    and span.start <= e.time_range.start <= span.end:
+                tot, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+        dev_s = sum(t for t, _ in by_name.values()) / 1e6
+        n_ops = sum(n for _, n in by_name.values())
+        print(f"  profiled {label}: wall {wall:.4f} s, device busy "
+              f"{dev_s:.4f} s ({100 * dev_s / wall:.1f}%), idle "
+              f"{100 * (1 - dev_s / wall):.1f}% (profiler on), "
+              f"{n_ops} device ops", flush=True)
+        for name, (t, n) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+            print(f"    {t / 1e3:9.3f} ms  x{n:<6} {name[:90]}", flush=True)
 
 
 def build_phase(names=("knn2", "sgm_census", "sgm_aggregate")):
@@ -498,6 +680,10 @@ def build_phase(names=("knn2", "sgm_census", "sgm_aggregate")):
             if "registers" in ln or "spill" in ln or "smem" in ln \
                     or "Function properties" in ln:
                 print("    " + ln.strip(), flush=True)
+
+
+FUSED_KERNELS = ("census_cost", "sgm_horizontal", "sgm_partial",
+                 "sgm_total_wta")
 
 
 def check_launches(launches, path):
@@ -535,18 +721,29 @@ def main(argv=None):
         check_launches(launches, "the sfm path")
     with phase("5 dense path: cli dense"):
         dense_launches, dense_stats = dense_phase()
-        check_launches(dense_launches, "the dense path")
-    launches.update(dense_launches)
+        check_launches({k: n for k, n in dense_launches.items()
+                        if k in FUSED_KERNELS}, "the dense path")
+    with phase("6 dense volume path: stereo_sgm_volume"):
+        volume_launches, volume_stats = volume_phase()
+    with phase("7 dense ELAS path: cli dense --method elas"):
+        _, elas_stats = dense_phase(method="elas")
+    # a kernel's launches: the sum of its counts over the paths' timed runs
+    for path_launches in (dense_launches, volume_launches):
+        for k, n in path_launches.items():
+            launches[k] = launches.get(k, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
+    check_launches({r["name"]: r["launches"] for r in rows}, "a path")
     if args.profile:
-        with phase("5b profiled end-to-end paths"):
+        with phase("7b profiled end-to-end paths"):
             profile_phase(args.profile)
-    with phase("6 report"):
-        print(json.dumps({"e2e": {k: v for k, v in stats.items()
-                                  if k != "stages"},
-                          "dense": {k: v for k, v in dense_stats.items()
-                                    if k != "stages"}}), flush=True)
+    with phase("8 report"):
+        print(json.dumps({
+            "e2e": {k: v for k, v in stats.items() if k != "stages"},
+            "dense": {k: v for k, v in dense_stats.items() if k != "stages"},
+            "dense_volume": volume_stats,
+            "dense_elas": {k: v for k, v in elas_stats.items()
+                           if k != "stages"}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

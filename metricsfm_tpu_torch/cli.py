@@ -4,14 +4,15 @@
       [--out DIR] [--max-kp N] [--no-resize] [--matching all]
       [--device cuda|cpu]
   python -m metricsfm_tpu_torch.cli dense <fold> [--pose-file F]
-      [--disp 128] [--method sgm] [--device cuda|cpu]
+      [--disp 128] [--method sgm|elas] [--device cuda|cpu]
 
 Counterparts of `metricsfm_tpu.cli sfm` (the reference's test_sfm.cc
-driver) and `metricsfm_tpu.cli dense` (pairwise SGM stereo over the
+program) and `metricsfm_tpu.cli dense` (pairwise stereo over the
 consecutive views of a SURE pose file, e.g. the `sfm_sure.txt` that `sfm`
-writes; on a card it runs through the CUDA kernels of ops/sgm_kernel,
-with --device cpu through their plain versions).  The slam and calib
-commands and `--method elas` are not ported yet.
+writes).  `--method sgm` runs on a card through the CUDA kernels of
+ops/sgm_kernel, with --device cpu through their plain versions; `--method
+elas` is plain torch on either device (the reference has no kernel for
+it).  The slam and calib commands are not ported yet.
 """
 from __future__ import annotations
 
@@ -92,8 +93,8 @@ def cmd_sfm(args):
 
 
 def cmd_dense(args):
-    """Pose file + images -> rectified pairs -> SGM -> depth maps and a
-    cloud in <fold>/dense.  Returns the per-pair point clouds."""
+    """Pose file + images -> rectified pairs -> SGM or ELAS -> depth maps
+    and a cloud in <fold>/dense.  Returns the per-pair point clouds."""
     from .config import DenseOptions
     from .models.dense import DenseReconstruction
     from .utils.tracing import GLOBAL_TRACER, span
@@ -132,7 +133,8 @@ def main(argv=None):
     pd.add_argument("--pose-file", default=None)
     pd.add_argument("--disp", type=int, default=128)
     pd.add_argument("--method", choices=["sgm", "elas"], default="sgm",
-                    help="elas is not ported yet and raises")
+                    help="stereo method: sgm (CUDA kernels on a card) or "
+                    "elas (ROBOTICS preset)")
     pd.add_argument("--device", default="cuda",
                     help="torch device: cuda (default; raises without a "
                     "card) or cpu")

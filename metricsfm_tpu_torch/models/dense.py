@@ -5,9 +5,9 @@ DenseReconstruction, SfM/src/dense_reconstruction.{h,cc}): reads a
 SURE-format pose file, epipolar-rectifies each consecutive pair (linear
 Fusiello method: both cameras rotated onto a common frame whose x-axis is
 the baseline, images warped through the induced homographies with
-bilinear resampling), runs SGM stereo (ops/sgm.stereo_sgm) on the device,
-converts disparity -> depth -> world points and writes depth maps, the
-rectified poses and the cloud.
+bilinear resampling), runs SGM (ops/sgm.stereo_sgm) or ELAS
+(ops/elas.stereo_elas) stereo on the device, converts disparity -> depth
+-> world points and writes depth maps, the rectified poses and the cloud.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import DenseOptions
+from ..ops import elas as elas_ops
 from ..ops import sgm as sgm_ops
 from ..ops.sift import _bilinear
 from ..utils.tracing import span
@@ -98,13 +99,13 @@ def warp_homography(img, H_inv, out_shape=None):
 
 
 class DenseReconstruction:
-    """Per-consecutive-pair dense stereo (ref Run/SGMDense) on `device`."""
+    """Per-consecutive-pair dense stereo (ref Run/SGMDense/ELASDense) on
+    `device`."""
 
     def __init__(self, options: DenseOptions, device="cpu"):
-        if options.method != "sgm":
-            raise NotImplementedError(
-                f"dense method {options.method!r} is not ported yet (ROADMAP "
-                "§1 item B, ELAS); use method='sgm'")
+        if options.method not in ("sgm", "elas"):
+            raise ValueError(f"dense method {options.method!r}: expected "
+                             "'sgm' or 'elas'")
         self.opts = options
         self.device = torch.device(device)
 
@@ -140,9 +141,16 @@ class DenseReconstruction:
                 r1 = warp_homography(img1, np.linalg.inv(H1))
                 r2 = warp_homography(img2, np.linalg.inv(H2))
             with span("dense/stereo", sync=True):
-                disp, valid = sgm_ops.stereo_sgm(
-                    r1, r2, max_disp=o.disp_size, p1=o.p1, p2=o.p2,
-                    uniqueness=o.uniqueness, num_paths=o.num_paths)
+                if o.method == "elas":
+                    ep = elas_ops.middlebury_params() \
+                        if o.elas_setting == "middlebury" \
+                        else elas_ops.ElasParams()
+                    disp, valid = elas_ops.stereo_elas(
+                        r1, r2, max_disp=o.disp_size, params=ep)
+                else:
+                    disp, valid = sgm_ops.stereo_sgm(
+                        r1, r2, max_disp=o.disp_size, p1=o.p1, p2=o.p2,
+                        uniqueness=o.uniqueness, num_paths=o.num_paths)
             depth = sgm_ops.disparity_to_depth(
                 disp, float(Kn[0, 0]), baseline, o.depth_scale,
                 o.depth_clamp)

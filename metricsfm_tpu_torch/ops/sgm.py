@@ -4,17 +4,21 @@ Counterpart of metricsfm_tpu/ops/sgm.py (the reference's libSGM backend,
 SfM/src/dense/cudasgm/: 9x7 census -> 8-path aggregation (P1=10, P2=120)
 -> winner-takes-all with uniqueness 0.96 -> 3x3 median -> L/R check).
 
-`stereo_sgm` follows the JAX package's fused accelerator branch
-(metricsfm_tpu/ops/sgm.py:350-369) on every device: census + cost volume,
-the three aggregation stages and the fused left/right WTA run through the
-kernels of ops/sgm_kernel (their plain versions on a CPU tensor), and the
-per-pixel tail (uniqueness, subpixel, median, L/R check) runs in torch on
-the WTA maps.  The right disparity is the integer WTA of
-cost_r(x, d) = total(x + d, d); the JAX CPU branch takes it with subpixel,
-which changes the L/R check on a small share of pixels only.
+Two paths, each through the kernels of ops/sgm_kernel (their plain
+versions on a CPU tensor; on a CUDA tensor a kernel or an error):
 
-`aggregate_paths` and `winner_takes_all` are the plain full-volume
-functions of the JAX package (the 4/8-path sum and the volume WTA).
+* `stereo_sgm` follows the JAX package's fused accelerator branch
+  (metricsfm_tpu/ops/sgm.py:350-369) on every device, and `cli dense`
+  runs it: census + cost volume (2c), the three aggregation stages (2d,
+  2e) and the fused left/right WTA (2f), then the per-pixel tail
+  (uniqueness, subpixel, median, L/R check) in torch on the WTA maps.  The
+  right disparity is the integer WTA of cost_r(x, d) = total(x + d, d).
+* `stereo_sgm_volume` follows the JAX package's volume branch
+  (metricsfm_tpu/ops/sgm.py:370-394, the one it runs off the TPU): 2c,
+  then `aggregate_paths` (2d -> 2e -> 2g) writes the summed volume, and
+  `winner_takes_all` (2h) runs on it and on the skewed right volume, each
+  with subpixel.  The subpixel right disparity changes the L/R check
+  against the fused path on a small share of pixels only.
 """
 from __future__ import annotations
 
@@ -25,13 +29,14 @@ from .sgm_kernel import census_transform, matching_cost_volume  # noqa: F401
 
 
 def aggregate_paths(cost, p1: int = 10, p2: int = 120, num_paths: int = 8):
-    """Sum of 4 or 8 directional aggregations over an (H, W, D) integer
-    cost volume -> (H, W, D) int16 (plain torch scan; penalties are
-    truncated to integers like the reference's)."""
+    """Sum of 4 or 8 directional aggregations over an (H, W, D) uint8 cost
+    volume -> (H, W, D) int16, through kernels 2d -> 2e -> 2g (penalties
+    are truncated to integers like the reference's)."""
     p1, p2 = int(p1), int(p2)
-    h = sgm_kernel.horizontal_reference(cost, p1, p2)
-    part = sgm_kernel.partial_reference(cost, h, p1, p2, num_paths)
-    return sgm_kernel.total_reference(cost, part, p1, p2, num_paths)
+    h = sgm_kernel.sgm_horizontal(cost, p1, p2)
+    part = sgm_kernel.sgm_partial(cost, h, p1, p2, num_paths)
+    del h      # at most two int16 volumes live at once
+    return sgm_kernel.sgm_total(cost, part, p1, p2, num_paths)
 
 
 def _disp_from_wta(w, max_disp: int, uniqueness: float, subpixel: bool):
@@ -59,21 +64,13 @@ def _disp_from_wta(w, max_disp: int, uniqueness: float, subpixel: bool):
 
 def winner_takes_all(agg, uniqueness: float = 0.96, subpixel: bool = True):
     """argmin + uniqueness test + parabolic subpixel over a full (H, W, D)
-    volume.  Returns (disp (H, W) float32, valid (H, W) bool)."""
-    D = agg.shape[-1]
-    big = 30000 if not agg.is_floating_point() else 1e9
-    best = agg.argmin(dim=-1)
-    c0 = agg.amin(dim=-1).float()
-    # second best at least 2 disparities away
-    d_idx = torch.arange(D, device=agg.device)
-    near = (d_idx - best[..., None]).abs() <= 1
-    c1 = agg.masked_fill(near, big).amin(dim=-1).float()
-    w = {"c0": c0, "c1": c1, "best": best}
-    if subpixel:
-        bm = best.clamp(1, D - 2)[..., None]
-        for k, off in (("cm", -1), ("cc", 0), ("cp", 1)):
-            w[k] = agg.gather(-1, bm + off)[..., 0]
-    return _disp_from_wta(w, D, uniqueness, subpixel)
+    int16, int32 or float32 volume, through kernel 2h (the second best is
+    at least 2 disparities away and capped at 30000 for an integer volume,
+    1e9 for a float one).  Returns (disp (H, W) float32, valid (H, W)
+    bool)."""
+    big = 1e9 if agg.is_floating_point() else 30000
+    w = sgm_kernel.wta(agg, big)
+    return _disp_from_wta(w, agg.shape[-1], uniqueness, subpixel)
 
 
 def median3(x):
@@ -121,6 +118,25 @@ def stereo_sgm(left, right, max_disp: int = 128, p1: int = 10,
     return disparity_from_wta(wta_l, wta_r, D, uniqueness, subpixel)
 
 
+def stereo_sgm_volume(left, right, max_disp: int = 128, p1: int = 10,
+                      p2: int = 120, uniqueness: float = 0.96,
+                      num_paths: int = 8, subpixel: bool = True):
+    """SGM through the summed volume: the JAX package's volume branch of
+    stereo_sgm.  Same arguments and result as `stereo_sgm`; the right
+    disparity is the subpixel WTA of the skewed volume
+    cost_r(x, d) = agg(x + d, d), 30000 where x + d >= W."""
+    p1, p2 = int(p1), int(p2)
+    cost = sgm_kernel.census_cost(left.float().contiguous(),
+                                  right.float().contiguous(), max_disp)
+    agg = aggregate_paths(cost, p1, p2, num_paths)
+    del cost
+    disp_l, uniq_l = winner_takes_all(agg, uniqueness, subpixel)
+    cost_r = sgm_kernel.skew_right(agg, 30000)
+    del agg
+    disp_r, _ = winner_takes_all(cost_r, uniqueness, subpixel)
+    return _median_lr(disp_l, uniq_l, disp_r)
+
+
 def disparity_from_wta(wta_l, wta_r, max_disp: int, uniqueness: float = 0.96,
                        subpixel: bool = True):
     """The per-pixel tail of stereo_sgm on the fused WTA maps: uniqueness,
@@ -130,9 +146,14 @@ def disparity_from_wta(wta_l, wta_r, max_disp: int, uniqueness: float = 0.96,
     # the right disparity is integer (libsgm semantics): it only feeds the
     # <= 1 px L/R check
     disp_r, _ = _disp_from_wta(wta_r, max_disp, uniqueness, False)
+    return _median_lr(disp_l, uniq_l, disp_r)
+
+
+def _median_lr(disp_l, uniq_l, disp_r):
+    """3x3 medians of both disparities, then the L/R check; returns (disp
+    with invalid = -1, valid)."""
     disp_l = median3(disp_l)
-    disp_r = median3(disp_r)
-    valid = uniq_l & lr_consistency(disp_l, disp_r)
+    valid = uniq_l & lr_consistency(disp_l, median3(disp_r))
     return torch.where(valid, disp_l, torch.full_like(disp_l, -1.0)), valid
 
 

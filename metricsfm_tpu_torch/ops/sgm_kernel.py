@@ -1,13 +1,19 @@
-"""SGM kernels: census + cost volume, 8-path aggregation, fused WTA.
+"""SGM kernels: census + cost volume, 8-path aggregation, WTA.
 
-Counterpart of metricsfm_tpu/ops/pallas/sgm_kernel.py.  Four kernels carry
-the fused stereo path (ops/sgm.stereo_sgm), each a wrapper here with its
-plain PyTorch version beside it:
+Counterpart of metricsfm_tpu/ops/pallas/sgm_kernel.py.  Six kernels, each
+a wrapper here with its plain PyTorch version beside it:
 
   census_cost      (2c) <- census_cost_pallas / _census_cost_kernel
   sgm_horizontal   (2d) <- _horizontal_pass / _horizontal_kernel
   sgm_partial      (2e) <- _partial_sum / _vertical_fwd_kernel
   sgm_total_wta    (2f) <- aggregate_wta_pallas / _vertical_bwd_kernel
+  sgm_total        (2g) <- aggregate_paths_pallas / _vertical_bwd_total_kernel
+  wta              (2h) <- wta_pallas / _wta_kernel
+
+2c-2f carry the fused stereo path (ops/sgm.stereo_sgm).  2c, 2d, 2e, 2g
+and 2h (twice: the left volume and the skewed right one) carry the volume
+path (ops/sgm.stereo_sgm_volume, through ops/sgm.aggregate_paths and
+ops/sgm.winner_takes_all).
 
 On a CUDA tensor a wrapper launches its kernel (ops/csrc/sgm_census.cu,
 ops/csrc/sgm_aggregate.cu) or raises; on a CPU tensor it runs the plain
@@ -18,7 +24,9 @@ Layouts hold the semantics, not the TPU's padding: the cost volume is
 (H, W, D) uint8 (Hamming costs <= 64), aggregated volumes are (H, W, D)
 int16 (a path value is <= 64 + P2 and the 8-path sum <= 8 * 184 = 1,472),
 and the WTA maps are (H, W) int32.  All values are integers, so kernel and
-plain version agree exactly whatever the order of the sums.  Semantics:
+plain version agree exactly whatever the order of the sums.  2h also takes
+int32 and float32 volumes (float32 maps but an int32 `best`); a float
+minimum is exact too, so there as well the two agree exactly.  Semantics:
 
   * census: 9x7 window, bit = centre > neighbour, zero-padded context,
     bits in dy-outer / dx-inner order with the centre skipped, bits 0-31
@@ -35,6 +43,9 @@ plain version agree exactly whatever the order of the sums.  Semantics:
     fill), and cm/cc/cp at clip(best, 1, D-2) -1/0/+1.
     WTA (right, integer only): the same c0/best/c1 over
     cost_r(x, d) = total(x + d, d), with 30000 where x + d >= W.
+  * 2h: the left WTA maps of any volume, with c1 capped at `c1_cap`
+    (ops/sgm.winner_takes_all passes 30000 for an integer volume and 1e9
+    for a float one, as the JAX package's winner_takes_all does).
 """
 from __future__ import annotations
 
@@ -165,9 +176,9 @@ def total_reference(cost, partial, p1: int = 10, p2: int = 120,
 
 
 def _wta(vol, cap_c1):
-    """c0, best, c1 over the last axis of an int32 volume."""
+    """c0, best, c1 over the last axis of an int32 or float32 volume."""
     D = vol.shape[-1]
-    best = vol.argmin(dim=-1)
+    best = vol.argmin(dim=-1)                   # ties -> the first d
     c0 = vol.gather(-1, best[..., None])[..., 0]
     d = torch.arange(D, device=vol.device)
     near = (d - best[..., None]).abs() <= 1     # always holds at d = best
@@ -175,26 +186,40 @@ def _wta(vol, cap_c1):
     return c0, best, c1
 
 
+def skew_right(vol, fill):
+    """The right view's volume vol_r(x, d) = vol(x + d, d), `fill` where
+    x + d >= W, in one gather over an (H, W, D) volume."""
+    H, W, D = vol.shape
+    dev = vol.device
+    xs = torch.arange(W, device=dev)[:, None] + torch.arange(D, device=dev)
+    dd = torch.arange(D, device=dev).expand(W, D)
+    return vol[:, xs.clamp(max=W - 1), dd].masked_fill_(xs >= W, fill)
+
+
+def wta_reference(vol, c1_cap):
+    """Plain version of kernel 2h: the WTA_LEFT maps of an (H, W, D)
+    volume.  int16 / int32 volumes give int32 maps; a float32 volume gives
+    float32 maps and an int32 `best`."""
+    if vol.is_floating_point():
+        v, cap = vol, float(c1_cap)
+    else:
+        v, cap = vol.to(torch.int32), int(c1_cap)
+    D = v.shape[-1]
+    c0, best, c1 = _wta(v, cap)
+    bm = best.clamp(1, D - 2)[..., None]
+    return {"c0": c0, "best": best.to(torch.int32), "c1": c1,
+            "cm": v.gather(-1, bm - 1)[..., 0],
+            "cc": v.gather(-1, bm)[..., 0],
+            "cp": v.gather(-1, bm + 1)[..., 0]}
+
+
 def wta_maps_reference(total):
     """The WTA epilogue of kernel 2f on a (H, W, D) total: (left, right)
     dicts of (H, W) int32 maps (WTA_LEFT / WTA_RIGHT keys)."""
     t = total.to(torch.int32)
-    H, W, D = t.shape
-    c0, best, c1 = _wta(t, _C1_CAP)
-    bm = best.clamp(1, D - 2)[..., None]
-    left = {"c0": c0, "best": best, "c1": c1,
-            "cm": t.gather(-1, bm - 1)[..., 0],
-            "cc": t.gather(-1, bm)[..., 0],
-            "cp": t.gather(-1, bm + 1)[..., 0]}
-    dev = t.device
-    xs = torch.arange(W, device=dev)[:, None] + torch.arange(D, device=dev)
-    dd = torch.arange(D, device=dev).expand(W, D)
-    tr = t[:, xs.clamp(max=W - 1), dd]                     # (H, W, D)
-    tr = tr.masked_fill(xs >= W, _RIGHT_OOR)
-    r0, rbest, r1 = _wta(tr, _C1_CAP)
-    right = {"c0": r0, "best": rbest, "c1": r1}
-    left = {k: v.to(torch.int32) for k, v in left.items()}
-    right = {k: v.to(torch.int32) for k, v in right.items()}
+    left = wta_reference(t, _C1_CAP)
+    r0, rbest, r1 = _wta(skew_right(t, _RIGHT_OOR), _C1_CAP)
+    right = {"c0": r0, "best": rbest.to(torch.int32), "c1": r1}
     return left, right
 
 
@@ -218,7 +243,8 @@ def _check_penalties(p1: int, p2: int, num_paths: int):
 
 
 def _check_volume(name, t, dtype, shape=None):
-    if t.dim() != 3 or t.dtype != dtype:
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dim() != 3 or t.dtype not in dtypes:
         raise TypeError(f"{name} must be a 3-D {dtype} tensor, got "
                         f"{t.dtype} {tuple(t.shape)}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -239,16 +265,18 @@ def _device_of(*ts):
     return dev
 
 
-def _launch(lib_name, fn_name, dev, ptrs, ints):
-    """Call a C entry `fn(ptrs..., ints..., stream)` of csrc/<lib_name>.cu
-    on the current stream; raise if it returns a CUDA error."""
+def _launch(lib_name, fn_name, dev, ptrs, scalars):
+    """Call a C entry `fn(ptrs..., scalars..., stream)` of
+    csrc/<lib_name>.cu on the current stream (a Python float passes as a C
+    float, anything else as an int); raise if it returns a CUDA error."""
     fn = getattr(cuda_build.load_library(lib_name), fn_name)
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
-        [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+        [ctypes.c_float if isinstance(v, float) else ctypes.c_int
+         for v in scalars] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), *scalars, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError {rc}")
 
@@ -342,7 +370,62 @@ def sgm_total_wta(cost, partial, p1: int = 10, p2: int = 120,
 
 sgm_total_wta.launches = 0
 
-KERNELS = (census_cost, sgm_horizontal, sgm_partial, sgm_total_wta)
+
+def sgm_total(cost, partial, p1: int = 10, p2: int = 120,
+              num_paths: int = 8):
+    """Kernel 2g: up paths onto `partial`, the full 4/8-path sum as an
+    (H, W, D) int16 volume."""
+    _check_volume("cost", cost, torch.uint8)
+    _check_volume("partial", partial, torch.int16, cost.shape)
+    _check_penalties(p1, p2, num_paths)
+    dev = _device_of(cost, partial)
+    if dev.type == "cpu":
+        return total_reference(cost, partial, p1, p2, num_paths)
+    H, W, D = cost.shape
+    total = torch.empty((H, W, D), dtype=torch.int16, device=dev)
+    _launch("sgm_aggregate", "sgm_total_launch", dev,
+            (cost, partial, total), (H, W, D, p1, p2, int(num_paths >= 8)))
+    sgm_total.launches += 1
+    return total
+
+
+sgm_total.launches = 0
+
+_WTA_DTYPES = {torch.int16: 0, torch.int32: 1, torch.float32: 2}
+
+
+def wta(vol, c1_cap):
+    """Kernel 2h: the WTA_LEFT maps (c0, best, c1, cm, cc, cp) of an
+    (H, W, D) int16, int32 or float32 volume, c1 capped at `c1_cap`.
+    Returns a dict of (H, W) maps: int32 for an integer volume; float32
+    but an int32 `best` for a float32 one."""
+    _check_volume("vol", vol, tuple(_WTA_DTYPES))
+    floating = vol.is_floating_point()
+    if not floating and c1_cap != int(c1_cap):
+        raise ValueError(f"c1_cap {c1_cap} must be an integer for an "
+                         f"integer volume")
+    # the kernel takes the cap as a C float: keep it exact
+    if float(torch.tensor(float(c1_cap), dtype=torch.float32)) != c1_cap:
+        raise ValueError(f"c1_cap {c1_cap} is not exact in float32")
+    dev = _device_of(vol)
+    if dev.type == "cpu":
+        return wta_reference(vol, c1_cap)
+    H, W, D = vol.shape
+    vals = torch.empty((5, H, W), dtype=torch.float32 if floating
+                       else torch.int32, device=dev)
+    best = torch.empty((H, W), dtype=torch.int32, device=dev)
+    _launch("sgm_aggregate", "sgm_wta_launch", dev, (vol, vals, best),
+            (H, W, D, _WTA_DTYPES[vol.dtype], float(c1_cap)))
+    wta.launches += 1
+    maps = dict(zip(("c0", "c1", "cm", "cc", "cp"), vals))
+    maps["best"] = best
+    return {k: maps[k] for k in WTA_LEFT}
+
+
+wta.launches = 0
+
+KERNELS = (census_cost, sgm_horizontal, sgm_partial, sgm_total_wta,
+           sgm_total, wta)
 
 
 def reset_launches():

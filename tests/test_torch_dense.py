@@ -126,11 +126,15 @@ def test_cli_dense_writes_its_files(tmp_path, scene, capsys):
 
 
 def test_cli_dense_refuses(tmp_path, scene):
-    """--device cuda without a card raises; --method elas is not ported."""
+    """--device cuda without a card raises; so does a stereo method other
+    than sgm and elas (the CLI's choices refuse it before
+    DenseReconstruction does)."""
     _write_fold(str(tmp_path), *scene[:2], png=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["dense", str(tmp_path), "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="ELAS"):
-        cli.main(["dense", str(tmp_path), "--method", "elas",
+    with pytest.raises(ValueError, match="census"):
+        dense.DenseReconstruction(DenseOptions(method="census"))
+    with pytest.raises(SystemExit):
+        cli.main(["dense", str(tmp_path), "--method", "census",
                   "--device", "cpu"])

@@ -21,6 +21,7 @@ MODULES = [
     "metricsfm_tpu_torch.ops.sift",
     "metricsfm_tpu_torch.ops.sgm",
     "metricsfm_tpu_torch.ops.sgm_kernel",
+    "metricsfm_tpu_torch.ops.elas",
     "metricsfm_tpu_torch.models.dense",
     "metricsfm_tpu_torch.io.exports",
     "metricsfm_tpu_torch.utils.synth",
