@@ -8,12 +8,17 @@ and the script exits non-zero:
   2. build every CUDA kernel from ops/csrc with nvcc (one nvcc per source,
      all started together);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it, and time both: knn2 (2a) at the sfm
-     verify batch; census_cost (2c), sgm_horizontal (2d), sgm_partial (2e),
-     sgm_total_wta (2f), sgm_total (2g) and wta (2h) at 768x1024 / D=128
-     and at a ragged 37x61 / D=48, exact on every output (2h also on the
-     skewed right volume, an int32 and a float32 volume) and within 1e-5
-     on the disparity after the torch tail;
+     shapes the main paths give it, and time both beside the kernel's
+     bound: knn2 (2a) at the sfm verify batch; knn2_int8 (2b) at the
+     matching-throughput shape (96 pairs of 4096 x 4096 x 128), a ragged
+     masked pair, one valid column, a duplicate-best tie and N2 = 9000,
+     exact on idx and both distances; census_cost (2c), sgm_horizontal
+     (2d), sgm_partial (2e), sgm_total_wta (2f), sgm_total (2g) and wta
+     (2h) at 768x1024 / D=128 and at a ragged 37x61 / D=48, exact on every
+     output (2h also on the skewed right volume, an int32 and a float32
+     volume) and within 1e-5 on the disparity after the torch tail; the
+     bare products (bf16 torch.matmul, torch._int_mm) are timed as
+     yardsticks only;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
      scene with 4096 keypoints per image, with the knn2 launch count reset
      just before and read just after, and check the reconstruction against
@@ -31,9 +36,20 @@ and the script exits non-zero:
      whose validity differs from the fused path's;
   7. drive `cli dense --method elas` (plain torch, no kernel) on the same
      folder and check the ELAS test's gates;
-  8. print the kernel table, the card line and the result line.
+  8. drive the matching-throughput path (`ops.matching.
+     matching_throughput`: 96 pairs x 4096 keypoints, 6 chained calls of
+     2b, then of 2a) with both counts reset just before and read just
+     after, and print pairs/s of each;
+  9. drive the aerial path once: 200 views (10 x 20) rendered at 640x480,
+     UAV preset, 2048 keypoints, GPS-priori candidates, Database ->
+     build_match_graph -> IncrementalSfM (PCG from 128 cameras), with the
+     2a count reset just before and read just after; gates: >= 95 %
+     registered in one model, ATE < 0.05, at least one PCG solve;
+ 10. print the paths' numbers, the kernel table (2a-2h, launches summed
+     over the paths), the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
-of each end-to-end path.  The last line of standard output is the result:
+of each end-to-end path (the aerial one device activity only, no trace).
+The last line of standard output is the result:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 from __future__ import annotations
@@ -88,6 +104,36 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet): the
+# tensor cores in bf16 and int8, HBM3.  Integer work outside the tensor
+# cores issues on the SM's 32-bit integer lanes, 64 per SM a clock
+# (a quarter of the 67 TFLOP/s float32 rate, which counts an FMA as two):
+# 132 SMs at the 1.98 GHz boost clock.
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+PEAK_INT32 = 132 * 64 * 1.98e9
+PEAK_BYTES = 3.35e12
+
+
+def bound(ops, rate, nbytes):
+    """The least time the card could take: the larger of ops / peak rate
+    and bytes (each input read once, each output written once) / HBM
+    rate; both times are kept."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def bound_text(b):
+    return (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; operations "
+            f"{b['ops_ms']:.4f}, bytes {b['bytes_ms']:.4f})")
+
+
+def nbytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def unit_store(rng, m, n, d=128):
@@ -196,15 +242,129 @@ def knn2_phase():
         store_t, mask_t, ii_t, jj_t))
     ms2 = cuda_time_ms(lambda: matching.knn2_gather(store_t, mask_t, ii_t,
                                                     jj_t))
+    # yardstick: the bf16 product alone (cuBLAS), not the same function
+    a_t = store_t[ii_t.long()]
+    bt_t = store_t[jj_t.long()].transpose(1, 2)
+    prod_ms = cuda_time_ms(lambda: torch.matmul(a_t, bt_t))
+    del a_t, bt_t
     flop = 2.0 * 32 * 4096 * 4096 * 128
+    nbytes = nbytes_of(store_t, mask_t, ii_t, jj_t) + 32 * 4096 * 12
+    b = bound(flop, PEAK_BF16, nbytes)
     print(f"  knn2 B=32 N=4096: kernel {ms:.3f}/{ms2:.3f} ms "
           f"({flop / (min(ms, ms2) * 1e9):.1f} TFLOP/s), plain "
-          f"{plain_ms:.3f}/{plain_ms2:.3f} ms", flush=True)
+          f"{plain_ms:.3f}/{plain_ms2:.3f} ms, {bound_text(b)}; product "
+          f"only, not the same function (bf16 "
+          f"torch.matmul): {prod_ms:.3f} ms", flush=True)
     return {"name": "knn2", "route": "cuda",
             "source": "metricsfm_tpu_torch/ops/csrc/knn2.cu",
             "replaces": "metricsfm_tpu/ops/pallas/match_kernel.py:45",
             "max_abs_err": max(errs), "ms": min(ms, ms2),
-            "plain_ms": min(plain_ms, plain_ms2)}
+            "plain_ms": min(plain_ms, plain_ms2), **b, "library_ms": None,
+            "product_only_ms": prod_ms}
+
+
+def compare_knn2_int8(q, db, mask, label):
+    """Kernel 2b vs its plain version on the card, on the same tensors:
+    the integer arithmetic is exact in both, so idx and both d^2 must be
+    equal (+inf included).  Returns the kernel's (d1_sq, d2_sq, idx) and
+    the largest |d1_sq| or |d2_sq| difference (inf - inf counts as 0)."""
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    got = matching.knn2_int8(q, db, mask)
+    want = matching.knn2_int8_reference(q, db, mask)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("d1_sq", "d2_sq", "idx"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            n_bad = int((a != b).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"knn2_int8 {label}: {what} differs from "
+                                 f"the plain version on {n_bad} rows")
+    err = max(float(torch.where(a == b, 0.0, (a - b).abs()).max())
+              for a, b in zip(got[:2], want[:2]))
+    print(f"  knn2_int8 {label}: q {tuple(q.shape)} {q.dtype}, db "
+          f"{tuple(db.shape)}, idx, d1_sq and d2_sq equal to plain, max "
+          f"|d^2 diff| {err:.3g} ({int(torch.isinf(got[1]).sum())} rows with "
+          f"d2 = +inf)", flush=True)
+    return got, err
+
+
+def knn2_int8_phase():
+    """Phase 3 for kernel 2b; returns its table row (without launches)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+
+    def nonneg(*shape):
+        return torch.tensor(np.abs(unit_store(rng, *shape)), device=dev)
+
+    # the matching-throughput path's shape and types: 96 pairs of 4096
+    # bf16 queries (the chained carry) against 4096 f32 database rows
+    d1, d2 = matching.throughput_descriptors(96, 4096)
+    q = torch.tensor(d1, device=dev).to(torch.bfloat16)
+    db = torch.tensor(d2, device=dev)
+    errs = [compare_knn2_int8(q, db, None, "bench 96x4096x4096")[1]]
+    # ragged single pair (2-D call), a fifth of the columns masked
+    qr, dbr = nonneg(1, 1000)[0], nonneg(1, 777)[0]
+    mr = torch.tensor(rng.uniform(size=777) > 0.2, device=dev)
+    errs.append(compare_knn2_int8(qr, dbr, mr,
+                                  "ragged N1=1000 N2=777 masked")[1])
+    # one valid column: idx that column, d2 = +inf
+    m1 = torch.zeros(777, dtype=torch.bool, device=dev)
+    m1[517] = True
+    (_, s2, si), err = compare_knn2_int8(qr, dbr, m1, "one valid column")
+    errs.append(err)
+    if not (torch.all(si == 517) and torch.all(torch.isinf(s2))):
+        raise AssertionError("one valid column: idx != 517 or d2 finite")
+    # duplicate best: the tie goes to the lower column, second == best
+    qt, dbt = nonneg(1, 300)[0], nonneg(1, 512)[0]
+    dbt[300] = dbt[40]
+    qt[:8] = dbt[40]
+    (t1, t2, ti), err = compare_knn2_int8(qt, dbt, None, "duplicate-best tie")
+    errs.append(err)
+    if ti[:8].tolist() != [40] * 8 or not torch.equal(t1[:8], t2[:8]):
+        raise AssertionError("duplicate-best tie not resolved to the lower "
+                             "column with second == best")
+    # past the Pallas kernel's N2 <= 8192 cap, two pairs
+    ql, dbl = nonneg(2, 1000), nonneg(2, 9000)
+    ml = torch.tensor(rng.uniform(size=(2, 9000)) > 0.05, device=dev)
+    (_, _, li), err = compare_knn2_int8(ql, dbl, ml, "N2=9000 > 8192")
+    errs.append(err)
+    if int(li.max()) < 8192:
+        raise AssertionError("N2=9000: no best column past 8192")
+
+    # times at the bench shape: the wrapper as the path calls it (its
+    # quantization included), the kernel alone on quantized operands, the
+    # plain version, and the int8 product alone as a yardstick
+    q8 = matching.quantize_desc_int8(q)
+    db8 = matching.quantize_desc_int8(db)
+    m8 = torch.ones(db8.shape[:2], dtype=torch.uint8, device=dev)
+    plain_ms = cuda_time_ms(lambda: matching.knn2_int8_reference(q, db),
+                            reps=3, warmup=1)
+    ms = cuda_time_ms(lambda: matching.knn2_int8(q, db))
+    kern_ms = cuda_time_ms(lambda: matching.knn2_int8_kernel(q8, db8, m8))
+    ms2 = cuda_time_ms(lambda: matching.knn2_int8(q, db))
+    plain_ms2 = cuda_time_ms(lambda: matching.knn2_int8_reference(q, db),
+                             reps=3, warmup=1)
+    prod_ms = cuda_time_ms(lambda: torch._int_mm(q8.view(-1, 128),
+                                                 db8[0].t()))
+    ops = 2.0 * 96 * 4096 * 4096 * 128
+    b = bound(ops, PEAK_INT8, nbytes_of(q, db) + 96 * 4096 * 12)
+    bk = bound(ops, PEAK_INT8, nbytes_of(q8, db8, m8) + 96 * 4096 * 12)
+    print(f"  knn2_int8 96x4096x4096: wrapper {ms:.3f}/{ms2:.3f} ms, kernel "
+          f"alone {kern_ms:.3f} ms ({ops / (kern_ms * 1e9):.1f} TOP/s), "
+          f"plain {plain_ms:.3f}/{plain_ms2:.3f} ms, {bound_text(b)}, "
+          f"kernel alone {bound_text(bk)}; product only, not the same "
+          f"function (torch._int_mm of the 393216x128 queries by one pair's "
+          f"database): {prod_ms:.3f} ms", flush=True)
+    return {"name": "knn2_int8", "route": "cuda",
+            "source": "metricsfm_tpu_torch/ops/csrc/knn2_int8.cu",
+            "replaces": "metricsfm_tpu/ops/pallas/match_kernel.py:170",
+            "max_abs_err": max(errs), "ms": min(ms, ms2),
+            "plain_ms": min(plain_ms, plain_ms2), **b, "library_ms": None,
+            "kernel_only_ms": kern_ms, "product_only_ms": prod_ms}
 
 
 SGM_ROWS = (
@@ -284,12 +444,31 @@ def compare_sgm(H, W, D, seed, label, time_it):
         "wta": (lambda: sk.wta(total_p, 30000),
                 lambda: sk.wta_reference(total_p, 30000), wta_p),
     }
+    # the bound of each kernel: its inputs read once and its outputs
+    # written once, against an estimate of its 32-bit integer work per
+    # volume element (census: two 63-neighbour transforms per pixel and
+    # xor + popcount + add per disparity; a path: about 8 ops per element;
+    # WTA: about 6) at the card's 32-bit integer issue rate
+    vol = H * W * D
+
+    def maps(m):
+        return nbytes_of(*(t for _, t, _ in _map_pairs("", m, m)))
+    io = {   # name: (input and output bytes, integer ops)
+        "census_cost": (nbytes_of(L, R, cost_p), 252 * H * W + 5 * vol),
+        "sgm_horizontal": (nbytes_of(cost_p, h_p), 17 * vol),
+        "sgm_partial": (nbytes_of(cost_p, h_p, part_p), 27 * vol),
+        "sgm_total_wta": (nbytes_of(cost_p, part_p) + maps((wl_p, wr_p)),
+                          36 * vol),
+        "sgm_total": (nbytes_of(cost_p, part_p, total_p), 27 * vol),
+        "wta": (nbytes_of(total_p) + maps(wta_p), 6 * vol),
+    }
     out = {}
     for name, (kern, plain, want) in calls.items():
         got = kern()
         torch.cuda.synchronize()
         _check_equal(label, _map_pairs(name, got, want))
-        out[name] = [0.0, None, None]
+        nbytes, ops = io[name]
+        out[name] = [0.0, None, None, bound(ops, PEAK_INT32, nbytes)]
     # 2h on the other volumes it takes: the skewed right volume of the
     # volume path (30000 fills), int32 and float32 volumes with ties
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -328,9 +507,10 @@ def compare_sgm(H, W, D, seed, label, time_it):
             k1 = cuda_time_ms(kern)
             k2 = cuda_time_ms(kern)
             p2 = cuda_time_ms(plain, reps=3, warmup=1)
-            out[name][1:] = [min(k1, k2), min(p1, p2)]
+            out[name][1:3] = [min(k1, k2), min(p1, p2)]
             print(f"  {name} {H}x{W}x{D}: kernel {k1:.3f}/{k2:.3f} ms, "
-                  f"plain {p1:.3f}/{p2:.3f} ms", flush=True)
+                  f"plain {p1:.3f}/{p2:.3f} ms, {bound_text(out[name][3])}",
+                  flush=True)
     return out
 
 
@@ -346,7 +526,8 @@ def sgm_phase():
         rows.append({"name": name, "route": "cuda",
                      "source": f"metricsfm_tpu_torch/ops/csrc/{src}",
                      "replaces": replaces, "max_abs_err": err,
-                     "ms": full[name][1], "plain_ms": full[name][2]})
+                     "ms": full[name][1], "plain_ms": full[name][2],
+                     **full[name][3], "library_ms": None})
     return rows
 
 
@@ -588,6 +769,176 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     return launches, stats
 
 
+def throughput_phase(n_pairs=96, n_kp=4096, iters=6):
+    """The matching-throughput path (`ops.matching.matching_throughput`,
+    the counterpart of the JAX bench's bench_matching): pairs/s of kernels
+    2b and 2a on the same descriptors, with both launch counts reset just
+    before and read just after."""
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    torch.cuda.synchronize()
+    matching.knn2_int8.launches = 0
+    matching.knn2_gather.launches = 0
+    rates = matching.matching_throughput(n_pairs, n_kp, iters, device="cuda")
+    launches = {"knn2_int8": matching.knn2_int8.launches,
+                "knn2": matching.knn2_gather.launches}
+    print(f"  {n_pairs} pairs x {n_kp}^2 x 128, {iters} chained calls: int8 "
+          f"(2b) {rates['int8']:.1f} pairs/s, bf16 (2a) {rates['bf16']:.1f} "
+          f"pairs/s, launches {launches}", flush=True)
+    return launches, rates
+
+
+def aerial_setup(rows=10, cols=20, width=640, height=480, max_kp=2048,
+                 device="cuda"):
+    """The JAX bench's bench_e2e_aerial configuration (bench.py:321-390):
+    a lawnmower survey of rows x cols views rendered on the card, and the
+    UAV preset without resizing, `max_kp` keypoints, GPS-priori candidates.
+    Returns (scene, config, render seconds)."""
+    import dataclasses
+
+    from metricsfm_tpu_torch.config import PRESETS
+    from metricsfm_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    gt = synth.render_aerial(seed=0, rows=rows, cols=cols, width=width,
+                             height=height, device=device)
+    render_s = time.perf_counter() - t0
+    cfg = PRESETS["uav"]()
+    cfg = dataclasses.replace(
+        cfg,
+        database=dataclasses.replace(cfg.database, resize=False,
+                                     max_keypoints=max_kp),
+        graph=dataclasses.replace(cfg.graph, matching_type="priori"))
+    return gt, cfg, render_s
+
+
+def aerial_run(gt, cfg, device="cuda"):
+    """One run of the aerial path on the views written as PNGs into a fresh
+    folder: Database -> build_match_graph (priori candidates from the
+    ground-truth centres) -> IncrementalSfM.run, each stage a span of the
+    global tracer.  Returns (scenes, the IncrementalSfM, verified pairs,
+    seconds)."""
+    import torch
+    from metricsfm_tpu_torch.models.database import Database
+    from metricsfm_tpu_torch.models.incremental import IncrementalSfM
+    from metricsfm_tpu_torch.models.match_graph import build_match_graph
+    from metricsfm_tpu_torch.utils import synth
+    from metricsfm_tpu_torch.utils.tracing import span
+
+    dev = torch.device(device)
+    fold = tempfile.mkdtemp(prefix="msf_smoke_aerial_")
+    try:
+        synth.write_scene_images(fold, gt)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with span("sfm/feature_extraction", sync=True):
+            db = Database(fold, cfg.database, device=dev)
+            db.feature_extraction()
+        with span("sfm/match_graph", sync=True):
+            matches = build_match_graph(db, cfg,
+                                        priori_utm=gt["centers"][:, :2])
+        feats = {i: db.features(i) for i in range(db.n_images)}
+        with span("sfm/reconstruct", sync=True):
+            sfm = IncrementalSfM(feats, matches, cfg, device=dev)
+            scenes = sfm.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return scenes, sfm, len(matches), time.perf_counter() - t0
+    finally:
+        shutil.rmtree(fold, ignore_errors=True)
+
+
+def aerial_phase():
+    """Run the aerial path once, with the kernel-2a launch count reset just
+    before and read just after.  Gates (bench.py:389): >= 95 % of the views
+    registered in one model, ATE < 0.05, and the PCG camera solve ran.
+    Returns (launches, stats)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.models.match_graph import candidates_gps
+    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.utils import synth
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+    gt, cfg, render_s = aerial_setup()
+    n_cams = len(gt["images"])
+    n_cand = len(candidates_gps(gt["centers"][:, :2], cfg.graph.knn))
+    GLOBAL_TRACER.reset()
+    torch.cuda.reset_peak_memory_stats()
+    matching.knn2_gather.launches = 0
+    scenes, sfm, n_verified, dt = aerial_run(gt, cfg)
+    launches = {"knn2": matching.knn2_gather.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if not scenes:
+        raise AssertionError("aerial: no model reconstructed")
+    best = max(scenes, key=lambda s: len(s.registered))
+    reg = sorted(best.registered)
+    est = np.stack([np_geom.camera_center(best.poses[i]) for i in reg])
+    ate = float(synth.ate_vs_gt(est, gt["centers"][reg]))
+    stages = GLOBAL_TRACER.report()
+    h, w = gt["images"].shape[1:]
+    print(f"  aerial {n_cams} views at {w}x{h}, "
+          f"{cfg.database.max_keypoints} keypoints: rendered in "
+          f"{render_s:.3f} s; {n_cand} candidate pairs, {n_verified} "
+          f"verified; {len(reg)}/{n_cams} registered in the largest of "
+          f"{len(scenes)} models, {best.n_points()} points, ATE {ate:.5f}; "
+          f"{dt:.3f} s = {n_cams / dt:.4f} images/s; peak "
+          f"{peak / 2**20:.1f} MiB; launches {launches}; solver counts "
+          f"{sfm.stats}", flush=True)
+    print("  stage table:\n" + "\n".join("    " + ln
+                                         for ln in stages.splitlines()),
+          flush=True)
+    if len(reg) < 0.95 * n_cams:
+        raise AssertionError(f"aerial: registered {len(reg)}/{n_cams} < 95 %")
+    if ate >= 0.05:
+        raise AssertionError(f"aerial: ATE {ate} >= 0.05")
+    if sfm.stats["cg_solves"] < 1:
+        raise AssertionError("aerial: the PCG camera solve never ran")
+    return launches, {"images_per_s": n_cams / dt, "seconds": dt,
+                      "registered": len(reg), "n_images": n_cams,
+                      "ate": ate, "candidate_pairs": n_cand,
+                      "verified_pairs": n_verified, "peak_bytes": peak,
+                      "render_seconds": render_s,
+                      "solver_counts": dict(sfm.stats),
+                      "stages": GLOBAL_TRACER.as_dict()}
+
+
+def profile_aerial():
+    """One more aerial run under torch.profiler, recording device activity
+    only (the run launches millions of ops: no host-op records and no trace
+    file): device busy share over the run's wall time, kernel 2a's device
+    time and share, and the top kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gt, cfg, _ = aerial_setup()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = aerial_run(gt, cfg)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            tot, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+    dev_s = sum(t for t, _ in by_name.values()) / 1e6
+    n_ops = sum(n for _, n in by_name.values())
+    print(f"  profiled aerial: wall {wall:.4f} s, device busy {dev_s:.4f} s "
+          f"({100 * dev_s / wall:.1f}%), idle {100 * (1 - dev_s / wall):.1f}% "
+          f"(profiler on), {n_ops} device ops", flush=True)
+    knn2 = [v for k, v in by_name.items() if "knn2_kernel" in k]
+    knn2_us, knn2_n = sum(t for t, _ in knn2), sum(n for _, n in knn2)
+    print(f"  kernel 2a (knn2_kernel): {knn2_n} launches, "
+          f"{knn2_us / 1e3:.3f} ms of device time = "
+          f"{100 * knn2_us / 1e6 / wall:.4f} % of the wall, "
+          f"{100 * knn2_us / 1e6 / dev_s:.4f} % of the device time",
+          flush=True)
+    for name, (t, n) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:15]:
+        print(f"    {t / 1e3:9.3f} ms  x{n:<7} {name[:90]}", flush=True)
+
+
 def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
     """Two more runs of each end-to-end path under torch.profiler, the
     second counted: device busy share (sum of device-op time over wall
@@ -665,7 +1016,7 @@ def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
             print(f"    {t / 1e3:9.3f} ms  x{n:<6} {name[:90]}", flush=True)
 
 
-def build_phase(names=("knn2", "sgm_census", "sgm_aggregate")):
+def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
     from metricsfm_tpu_torch.ops import cuda_build
@@ -713,7 +1064,7 @@ def main(argv=None):
     with phase("2 build kernels"):
         build_phase()
     with phase("3 kernels vs plain"):
-        rows = [knn2_phase()] + sgm_phase()
+        rows = [knn2_phase(), knn2_int8_phase()] + sgm_phase()
     if args.skip_e2e:
         return 0
     with phase("4 main path: cli sfm"):
@@ -727,23 +1078,34 @@ def main(argv=None):
         volume_launches, volume_stats = volume_phase()
     with phase("7 dense ELAS path: cli dense --method elas"):
         _, elas_stats = dense_phase(method="elas")
+    with phase("8 matching-throughput path: kernels 2b and 2a"):
+        tput_launches, tput_rates = throughput_phase()
+        check_launches(tput_launches, "the matching-throughput path")
+    with phase("9 aerial path: 200 views, priori candidates, PCG"):
+        aerial_launches, aerial_stats = aerial_phase()
+        check_launches(aerial_launches, "the aerial path")
     # a kernel's launches: the sum of its counts over the paths' timed runs
-    for path_launches in (dense_launches, volume_launches):
+    for path_launches in (dense_launches, volume_launches, tput_launches,
+                          aerial_launches):
         for k, n in path_launches.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
     check_launches({r["name"]: r["launches"] for r in rows}, "a path")
     if args.profile:
-        with phase("7b profiled end-to-end paths"):
+        with phase("9b profiled end-to-end paths"):
             profile_phase(args.profile)
-    with phase("8 report"):
+            profile_aerial()
+    with phase("10 report"):
         print(json.dumps({
             "e2e": {k: v for k, v in stats.items() if k != "stages"},
             "dense": {k: v for k, v in dense_stats.items() if k != "stages"},
             "dense_volume": volume_stats,
             "dense_elas": {k: v for k, v in elas_stats.items()
-                           if k != "stages"}}), flush=True)
+                           if k != "stages"},
+            "matching_throughput_pairs_per_s": tput_rates,
+            "aerial": {k: v for k, v in aerial_stats.items()
+                       if k != "stages"}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

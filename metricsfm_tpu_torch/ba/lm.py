@@ -16,10 +16,18 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
   diagonal (optimizer.cc:86-125).
 * The LM loop is a Python loop with accept/reject damping and one host
   read of the candidate cost per iteration.
+* cg_iterations > 0 solves the reduced camera system matrix-free by
+  block-Jacobi PCG instead (used from sfm.th_cg_cameras cameras up): no
+  (D, D) matrix and no O(P*C) factor, only O(P*V) per-track tensors.  The
+  JAX package's lane-major layouts and one-hot reducers exist for the TPU;
+  here slot sums go through ``index_add_``, and the CG loop keeps an
+  on-device "active" flag polled every few iterations instead of reading a
+  host scalar per iteration.  With cg_forcing, the CG tolerance follows the
+  inexact-Newton forcing sequence (Agarwal et al., "Bundle Adjustment in
+  the Large"): eta starts at cg_eta0 and tightens to max(eta^1.5, cg_tol)
+  on every accepted LM step.
 
-Not ported yet, and raising NotImplementedError: the matrix-free PCG camera
-solve (cg_iterations > 0, used from sfm.th_cg_cameras cameras up) and the
-GPS / pose-prior terms (see ba/problem.py).
+Not ported yet: the GPS / pose-prior terms (see ba/problem.py).
 """
 from __future__ import annotations
 
@@ -43,9 +51,14 @@ class LMConfig(NamedTuple):
     max_lambda: float = 1e10
     rtol: float = 1e-8
     jacobi_scale: bool = True
-    # > 0 selects the matrix-free PCG camera solve of the JAX package
-    # (not ported yet: raises)
+    # > 0: solve the reduced camera system by matrix-free block-Jacobi PCG
+    # with at most this many CG iterations per LM step (dense Cholesky at 0)
     cg_iterations: int = 0
+    cg_tol: float = 1e-5
+    # inexact-Newton forcing sequence: the CG relative tolerance starts at
+    # cg_eta0 and tightens to max(eta^1.5, cg_tol) on accepted LM steps
+    cg_forcing: bool = True
+    cg_eta0: float = 0.25
 
 
 def _residual_one(pose, intr, point, uv):
@@ -280,7 +293,183 @@ def backsub_points(aux, d_cam, problem: BAProblem):
     return d_pt * problem.point_mut[:, None]
 
 
-def _assemble_and_solve(problem: BAProblem, lam, cfg: LMConfig):
+# ---------------------------------------------------------------------------
+# Matrix-free PCG path for the reduced camera system (cfg.cg_iterations > 0)
+# ---------------------------------------------------------------------------
+
+CG_POLL = 8   # CG iterations between host reads of the on-device flag
+
+
+def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
+    """Per-track tensors and rhs of the PCG path: everything O(P*V), no
+    (D, D) matrix and no O(P*C) factor.
+
+    Returns (terms, rhs, aux): terms holds the per-slot Jacobians Jc
+    (P,V,2,9), W (P,V,9,3) = [Jpose|Jintr]^T Jpt, the point-block inverses
+    Hpp_inv (P,3,3) and the block-Jacobi pieces of S (the camera and model
+    diagonal blocks minus their Schur parts); aux is what backsub_points
+    needs.  Masked slots carry zero Jacobians and residuals, so they add
+    nothing to any camera sum.
+    """
+    C, M = problem.n_cameras, problem.n_models
+    dtype, dev = problem.points.dtype, problem.points.device
+
+    r, Jpo, Jin, Jpt = _obs_jacobians(problem)
+    rw = robust_weights(r, cfg.huber_delta)[..., None]
+    r = r * rw
+    Jpo = Jpo * rw[..., None]
+    Jin = Jin * rw[..., None]
+    Jpt = Jpt * rw[..., None]
+
+    cam = problem.track_cam                       # (P,V)
+    model = problem.cam_model[cam]                # (P,V)
+    pm = problem.point_mut
+
+    # ---- point blocks ----
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
+    diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
+    Hpp_d = Hpp + torch.diag_embed(damp)
+    Hpp_d = Hpp_d * pm[:, None, None] + eye3 * (1.0 - pm)[:, None, None]
+    Hpp_inv = _inv3x3(Hpp_d)
+
+    # ---- W and its Cholesky-folded form U (Schur part = U U^T) ----
+    Jc = torch.cat([Jpo, Jin], dim=-1)                              # (P,V,2,9)
+    W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) * pm[:, None, None, None]
+    U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))        # (P,V,9,3)
+
+    # ---- gradient + Schur rhs correction ----
+    g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)
+    y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
+    rv = torch.einsum("pvij,pj->pvi", W, y) \
+        - torch.einsum("pvri,pvr->pvi", Jc, r)                      # (P,V,9)
+    rhs = torch.cat([_bin_sum(rv[..., :6], cam, C).reshape(-1),
+                     _bin_sum(rv[..., 6:], model, M).reshape(-1)])
+
+    # ---- block-Jacobi pieces of S (Hcc minus Schur part, per view) ----
+    blk_pose = _bin_sum(
+        torch.einsum("pvri,pvrj->pvij", Jpo, Jpo)
+        - torch.einsum("pvik,pvjk->pvij", U[:, :, :6], U[:, :, :6]), cam, C)
+    blk_intr = _bin_sum(
+        torch.einsum("pvri,pvrj->pvij", Jin, Jin)
+        - torch.einsum("pvik,pvjk->pvij", U[:, :, 6:], U[:, :, 6:]), model, M)
+
+    terms = {"Jc": Jc, "W": W, "Hpp_inv": Hpp_inv,
+             "blk_pose": blk_pose, "blk_intr": blk_intr}
+    aux = {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
+    return terms, rhs, aux
+
+
+def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
+              tol_rel=None):
+    """Block-Jacobi PCG on the damped, freeze-masked reduced system.
+
+    The matvec applies S = Hcc - E Hpp^-1 E^T track by track; damping is
+    lam * diag(S) (clamped) + 1e-10, frozen dofs are identity rows.  The
+    loop stops after cfg.cg_iterations or once |r|^2 <= (tol_rel |b|)^2
+    (tol_rel defaults to cfg.cg_tol).  That test lives on the device: an
+    iteration that starts converged moves nothing, and the host reads the
+    flag every CG_POLL iterations, so the result equals a per-iteration
+    check without a host sync per iteration.  A preconditioner block that
+    fails its Cholesky yields a NaN step, which the LM loop rejects.
+    """
+    C, M = problem.n_cameras, problem.n_models
+    dtype, dev = rhs.dtype, rhs.device
+    free = torch.cat([problem.pose_mut.repeat_interleave(6),
+                      problem.intr_mut.repeat_interleave(3)])
+    blk_pose, blk_intr = terms["blk_pose"], terms["blk_intr"]
+    diag_p = torch.diagonal(blk_pose, dim1=-2, dim2=-1)             # (C,6)
+    diag_i = torch.diagonal(blk_intr, dim1=-2, dim2=-1)             # (M,3)
+    dampv = lam * torch.clamp(torch.cat([diag_p.reshape(-1),
+                                         diag_i.reshape(-1)]), min=1e-12) \
+        + 1e-10
+
+    Jc, W, Hpp_inv = terms["Jc"], terms["W"], terms["Hpp_inv"]
+    cam = problem.track_cam
+    cam_model = problem.cam_model
+
+    def matvec(x):
+        xm = x * free
+        x9 = torch.cat([xm[:6 * C].reshape(C, 6),
+                        xm[6 * C:].reshape(M, 3)[cam_model]], dim=1)  # (C,9)
+        xv = x9[cam]                                                  # (P,V,9)
+        t = torch.einsum("pvri,pvi->pvr", Jc, xv)
+        u = torch.einsum("pvri,pvr->pvi", Jc, t)
+        b3 = torch.einsum("pjk,pk->pj", Hpp_inv,
+                          torch.einsum("pvik,pvi->pk", W, xv))
+        z9 = u - torch.einsum("pvik,pk->pvi", W, b3)
+        zc = _bin_sum(z9, cam, C)                                     # (C,9)
+        # model ids are a function of the camera id: fold the camera rows
+        # into model bins
+        Sx = torch.cat([zc[:, :6].reshape(-1),
+                        _bin_sum(zc[:, 6:], cam_model, M).reshape(-1)])
+        Sx = Sx + dampv * xm
+        return Sx * free + (1.0 - free) * x
+
+    # block-Jacobi preconditioner (damped, freeze-safe)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Bp = blk_pose + torch.diag_embed(lam * torch.clamp(diag_p, min=1e-12)
+                                     + 1e-10)
+    Bi = blk_intr + torch.diag_embed(lam * torch.clamp(diag_i, min=1e-12)
+                                     + 1e-10)
+    fp = problem.pose_mut[:, None, None]
+    fi = problem.intr_mut[:, None, None]
+    Bp = Bp * fp + eye6 * (1.0 - fp)
+    Bi = Bi * fi + eye3 * (1.0 - fi)
+    Lp, info = torch.linalg.cholesky_ex(Bp)
+    Bi_inv = _inv3x3(Bi)
+
+    def prec(r):
+        zp = torch.cholesky_solve(r[:6 * C].reshape(C, 6, 1), Lp)
+        zi = torch.einsum("mij,mj->mi", Bi_inv, r[6 * C:].reshape(M, 3))
+        return torch.cat([zp.reshape(-1), zi.reshape(-1)])
+
+    rhs = rhs * free
+    if tol_rel is None:
+        tol_rel = cfg.cg_tol
+    tol2 = (tol_rel * torch.linalg.vector_norm(rhs)) ** 2
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = prec(r)
+    p = z
+    rz = torch.sum(r * z)
+    active = torch.sum(r * r) > tol2
+    for i in range(cfg.cg_iterations):
+        if i % CG_POLL == 0 and not bool(active):
+            break
+        Ap = matvec(p)
+        alpha = torch.where(active,
+                            rz / torch.clamp(torch.sum(p * Ap), min=1e-30),
+                            0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = prec(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = torch.where(active, z + beta * p, p)
+        rz = torch.where(active, rz_new, rz)
+        active = active & (torch.sum(r * r) > tol2)
+    x = torch.where(torch.any(info != 0), torch.nan, x)
+    return x * free
+
+
+def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
+                           tol_rel=None):
+    C, M = problem.n_cameras, problem.n_models
+    terms, rhs, aux = _track_terms(problem, lam, cfg)
+    d_cam = _cg_solve(problem, terms, rhs, lam, cfg, tol_rel=tol_rel)
+    d_pt = backsub_points(aux, d_cam, problem)
+    d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
+    d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
+    return d_pose, d_intr, d_pt
+
+
+def _assemble_and_solve(problem: BAProblem, lam, cfg: LMConfig,
+                        tol_rel=None):
+    if cfg.cg_iterations > 0:
+        return _assemble_and_solve_cg(problem, lam, cfg, tol_rel=tol_rel)
     C, M = problem.n_cameras, problem.n_models
     S, rhs, aux = partial_camera_system(problem, lam, cfg)
     d_cam = solve_reduced(S, rhs, problem, lam, cfg)
@@ -296,18 +485,16 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig()):
     Returns (problem, info) with initial_cost, final_cost, iterations,
     lambda, converged and rms_px (host numbers).
     """
-    if cfg.cg_iterations > 0:
-        raise NotImplementedError(
-            "the matrix-free PCG camera solve (ba/lm.py _cg_solve, used "
-            "from sfm.th_cg_cameras = 128 cameras) is not ported yet "
-            "(ROADMAP queue 1, 'BA PCG')")
     cost = float(problem_cost(problem, cfg.huber_delta))
     initial_cost = cost
     lam = float(cfg.init_lambda)
+    forcing = cfg.cg_forcing and cfg.cg_iterations > 0
+    eta = cfg.cg_eta0 if forcing else cfg.cg_tol
     it = 0
     converged = False
     while it < cfg.max_iterations:
-        d_pose, d_intr, d_pt = _assemble_and_solve(problem, lam, cfg)
+        d_pose, d_intr, d_pt = _assemble_and_solve(
+            problem, lam, cfg, tol_rel=eta if forcing else None)
         cand = problem._replace(poses=problem.poses + d_pose,
                                 intrs=problem.intrs + d_intr,
                                 points=problem.points + d_pt)
@@ -318,6 +505,8 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig()):
             rel = abs(cost - new_cost) / max(cost, 1e-20)
             problem, cost = cand, new_cost
             lam = max(lam / cfg.lambda_down, cfg.min_lambda)
+            # forcing sequence: tighten superlinearly on acceptance only
+            eta = max(eta ** 1.5, cfg.cg_tol)
             if rel < cfg.rtol:
                 converged = True
                 break

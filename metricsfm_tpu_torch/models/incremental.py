@@ -20,10 +20,11 @@ package's bucketed shapes.  Random draws (RANSAC samples, the seed BA
 perturbation) come from one torch.Generator on the device, seeded from
 `seed`.
 
-Not ported yet, and raising NotImplementedError: the calibrated 5-point
-seed (images with EXIF focal, or sfm.calibrated), the PCG camera solve
-(from sfm.th_cg_cameras cameras) and hierarchical BA (periodic full BAs
-above sfm.th_hierarchical_cameras).
+BA over sfm.th_cg_cameras or more cameras solves the reduced camera system
+by matrix-free PCG (ba/lm.py).  Not ported yet, and raising
+NotImplementedError: the calibrated 5-point seed (images with EXIF focal,
+or sfm.calibrated) and hierarchical BA (periodic full BAs above
+sfm.th_hierarchical_cameras).
 """
 from __future__ import annotations
 
@@ -96,12 +97,15 @@ class IncrementalSfM:
             init_lambda=self.cfg.ba.init_lambda,
             rtol=self.cfg.ba.rtol,
             cg_iterations=0,
+            cg_tol=self.cfg.ba.cg_tol,
+            cg_forcing=self.cfg.ba.cg_forcing,
         )
         # solver-path counters; *_iters track actual LM iterations consumed
-        # so a stage table can attribute BA seconds to iteration counts
+        # so a stage table can attribute BA seconds to iteration counts;
+        # cg_solves counts every BA (partial or full) that ran the PCG solve
         self.stats = {"full_ba": 0, "full_ba_cg": 0, "full_ba_hier": 0,
                       "partial_ba": 0, "partial_ba_iters": 0,
-                      "full_ba_iters": 0}
+                      "full_ba_iters": 0, "cg_solves": 0}
 
     # -- helpers -----------------------------------------------------------
     def _tensor(self, a, dtype=torch.float32):
@@ -421,8 +425,7 @@ class IncrementalSfM:
         sfm.th_cg_cameras (exact, cheap at small C); matrix-free PCG above
         it (the dense per-point camera factor is O(P*C)).
         ba.cg_iterations: -1 = auto-enable at scale (the default), 0 =
-        never, >0 = explicit cap.  The PCG solve is not ported yet:
-        solve_lm raises when it is selected.
+        never, >0 = explicit cap.
 
         Returns (use_cg, effective_cg_iterations)."""
         cg_req = self.cfg.ba.cg_iterations
@@ -516,6 +519,7 @@ class IncrementalSfM:
             device=self.device)
         use_cg, cg_its = self._cg_plan(len(kp_imgs))
         base_cfg = self._lm_cfg._replace(cg_iterations=cg_its)
+        self.stats["cg_solves"] += int(use_cg)
         if full:
             self.stats["full_ba"] += 1
             self.stats["full_ba_cg"] += int(use_cg)
@@ -536,7 +540,9 @@ class IncrementalSfM:
             lm_cfg = base_cfg._replace(
                 max_iterations=self.cfg.sfm.partial_ba_iterations,
                 rtol=max(base_cfg.rtol, loose))
-        prob, info = solve_lm(prob, lm_cfg)
+        # the solve's seconds by solver path, nested in the BA spans
+        with span("sfm/ba_solve/pcg" if use_cg else "sfm/ba_solve/dense"):
+            prob, info = solve_lm(prob, lm_cfg)
         self.stats["full_ba_iters" if full else "partial_ba_iters"] += \
             int(info["iterations"])
         if seed_run:
@@ -767,8 +773,9 @@ class IncrementalSfM:
                           f"{scene.n_points()} total, {len(remaining)} left")
             # final full BA + cull
             if len(scene.registered) > 2:
-                self._bundle(scene, full=True, final=True)
-                self._cull_outliers(scene, self.cfg.sfm.th_mse_outliers)
+                with span("sfm/final_ba"):
+                    self._bundle(scene, full=True, final=True)
+                    self._cull_outliers(scene, self.cfg.sfm.th_mse_outliers)
             self._write_checkpoint(checkpoint_dir, model_idx, scene)
             self.scenes.append(scene)
             if len(remaining) < 2:

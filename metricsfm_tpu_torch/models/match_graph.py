@@ -4,9 +4,10 @@ Counterpart of metricsfm_tpu/models/match_graph.py (the reference graph
 layer, SfM/src/graph.{h,cc}, graph/initial_matching_graph.cc,
 graph/fine_matching_graph.cc):
 
-* Candidate pairs: "all" (exhaustive, initial_matching_graph.cc:57-64).
-  The "priori" (GPS) and "feature" (BoW) strategies are not ported yet and
-  raise; like the JAX package, 12 images or fewer always match all pairs.
+* Candidate pairs: "all" (exhaustive, initial_matching_graph.cc:57-64) or
+  "priori" (GPS mutual k-NN in the UTM plane, :83-162).  The "feature"
+  (BoW) strategy is not ported yet and raises; like the JAX package, 12
+  images or fewer always match all pairs.
 * Fine matching: exact 2-NN with dual ratio tests (fine_matching_graph.cc:
   42-43); "good" matches (ratio < 0.6) estimate F via batched RANSAC, then
   "all" matches (ratio < 0.85) are re-filtered by epipolar distance < 3 px
@@ -29,12 +30,31 @@ import torch
 from ..config import GraphOptions
 from ..io import store as fstore
 from ..ops import epipolar, matching, ransac
+from ..utils import utm
 from .incremental import PairMatches
 
 
 def candidates_all(n: int) -> List[Tuple[int, int]]:
     """Exhaustive pairs (ref :57-64, UAV preset matching_type='all')."""
     return list(itertools.combinations(range(n), 2))
+
+
+def candidates_gps(gps_utm: np.ndarray, knn: int) -> List[Tuple[int, int]]:
+    """GPS prior: mutual k-NN in the UTM plane (ref :83-162).
+
+    gps_utm: (n, 2) easting/northing. k = min(knn, n/10) as in the ref.
+    """
+    n = len(gps_utm)
+    k = max(2, min(knn, max(n // 10, 2)))
+    d2 = ((gps_utm[:, None, :] - gps_utm[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    nbrs = np.argsort(d2, axis=1)[:, :k]
+    pairs = set()
+    for i in range(n):
+        for j in nbrs[i]:
+            if i in nbrs[j]:
+                pairs.add((min(i, int(j)), max(i, int(j))))
+    return sorted(pairs)
 
 
 def verify_pairs(opts: GraphOptions, desc, xy, mask, ii, jj, generator):
@@ -194,18 +214,35 @@ class MatchGraphBuilder:
         return out
 
 
-def build_match_graph(database, config, verbose: bool = False, device=None):
+def build_match_graph(database, config, verbose: bool = False, device=None,
+                      priori_utm=None):
     """End-to-end graph build (ref Graph::BuildGraph, graph.cc:52-70):
     candidate pairs, then batched fine matching on `device` (default: the
-    database's).  Returns {(i, j): PairMatches}."""
+    database's).  Returns {(i, j): PairMatches}.
+
+    priori_utm: optional (n, 2) easting/northing for 'priori' candidate
+    selection when positions come from a pose-prior file rather than image
+    EXIF (the reference accepts both, initial_matching_graph.cc:83-162).
+    """
     opts = config.graph
     n = database.n_images
     if opts.matching_type == "all" or n <= 12:
         pairs = candidates_all(n)
+    elif opts.matching_type == "priori":
+        if priori_utm is not None:
+            coords = np.asarray(priori_utm, np.float64)
+        else:
+            coords = []
+            for i in range(n):
+                lat, lon, _ = database.gps(i)
+                e, no, _ = utm.ll_to_utm(lat, lon)
+                coords.append([e, no])
+            coords = np.array(coords)
+        pairs = candidates_gps(coords, opts.knn)
     else:
         raise NotImplementedError(
-            f"matching_type {opts.matching_type!r} (GPS 'priori' / BoW "
-            "'feature' candidates) is not ported yet (ROADMAP queue 1)")
+            f"matching_type {opts.matching_type!r} (BoW 'feature' "
+            "candidates) is not ported yet (ROADMAP queue 'BoW')")
     if verbose:
         print(f"match graph: {len(pairs)} candidate pairs for {n} images")
     builder = MatchGraphBuilder(opts, out_fold=database.out,

@@ -13,11 +13,19 @@ The 2-NN itself has two implementations of one contract (`knn2_gather`):
     the TPU kernel metricsfm_tpu/ops/pallas/match_kernel.py:_kernel);
   * on a CPU tensor, the plain PyTorch version `knn2_reference`.
 Any other device raises; a failed kernel build raises.
+
+`knn2_int8` is the int8 variant (2-NN in the space of descriptors
+quantized to [0, 127]), with the same split: the kernel
+ops/csrc/knn2_int8.cu (the port of match_kernel.py:_kernel_int8) on CUDA,
+`knn2_int8_reference` on the CPU.  The JAX package reaches it only from
+its matching benchmark; `matching_throughput` is the port's counterpart.
 """
 from __future__ import annotations
 
 import ctypes
+import time
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -168,6 +176,232 @@ def knn2(desc1, desc2, mask2=None):
     d1, d2, idx = knn2_gather(*_pair_store(desc1, desc2, mask2))
     N1 = desc1.shape[0]
     return d1[0, :N1], d2[0, :N1], idx[0, :N1]
+
+
+INT8_SCALE = 256.0          # q = clip(round(d * 256), 0, 127)
+
+
+def quantize_desc_int8(desc):
+    """Quantize non-negative L2-normalized descriptors to int8 [0, 127]
+    (round half to even, as jnp.round)."""
+    return torch.clamp(torch.round(desc.float() * INT8_SCALE), 0, 127).to(
+        torch.int8)
+
+
+def _int8_operands(desc1, desc2, mask2):
+    """(B, N1, D) / (B, N2, D) views and a (B, N2) bool mask (all valid
+    when mask2 is None); a leading pair axis is added to 2-D inputs."""
+    if desc1.dim() == 2:
+        desc1, desc2 = desc1[None], desc2[None]
+        if mask2 is not None:
+            mask2 = mask2[None]
+    B, N2 = desc2.shape[:2]
+    if mask2 is None:
+        mask2 = torch.ones((B, N2), dtype=torch.bool, device=desc2.device)
+    return desc1, desc2, mask2.bool()
+
+
+def knn2_int8_reference(desc1, desc2, mask2=None, chunk: int = 2048):
+    """Plain PyTorch exact 2-NN in int8-quantized space (the kernel's
+    reference).
+
+    Args:
+      desc1: (N1, D) or (B, N1, D) non-negative unit queries (float).
+      desc2: (N2, D) or (B, N2, D) database.
+      mask2: (N2,) or (B, N2) bool validity of database rows, or None.
+      chunk: database columns per step (bounds memory at B*N1*chunk).
+    Returns (d1_sq, d2_sq, idx) shaped like the queries' leading axes:
+    with q = quantize_desc_int8, val = 2 q1.q2 - |q2|^2 (exact integers,
+    carried in f32: every value is below 2^24), the top-2 of val over the
+    valid columns (best ties to the lowest column, second-best excluding
+    only the best column), d^2 = max(|q1|^2 - val, 0) / 65536; +inf where
+    there is no such column.
+    """
+    squeeze = desc1.dim() == 2
+    desc1, desc2, mask2 = _int8_operands(desc1, desc2, mask2)
+    q = quantize_desc_int8(desc1).float()                   # (B, N1, D)
+    B, N1 = q.shape[:2]
+    N2 = desc2.shape[1]
+    dev = q.device
+    na = torch.sum(q * q, dim=-1)
+    neg_inf = float("-inf")
+    best = torch.full((B, N1), neg_inf, dtype=torch.float32, device=dev)
+    second = torch.full((B, N1), neg_inf, dtype=torch.float32, device=dev)
+    best_idx = torch.zeros((B, N1), dtype=torch.int32, device=dev)
+    for off in range(0, N2, chunk):
+        db = quantize_desc_int8(desc2[:, off:off + chunk]).float()
+        nb = torch.sum(db * db, dim=-1)                     # (B, c)
+        val = 2.0 * torch.matmul(q, db.transpose(1, 2)) - nb[:, None, :]
+        val = val.masked_fill(~mask2[:, None, off:off + chunk], neg_inf)
+        blk_arg = torch.argmax(val, dim=2, keepdim=True)
+        blk_best = val.gather(2, blk_arg)[..., 0]
+        blk_second = val.scatter(2, blk_arg, neg_inf).amax(dim=2)
+        best_idx = torch.where(blk_best > best,
+                               off + blk_arg[..., 0].to(torch.int32), best_idx)
+        second = torch.maximum(torch.minimum(best, blk_best),
+                               torch.maximum(second, blk_second))
+        best = torch.maximum(best, blk_best)
+    inv = 1.0 / (INT8_SCALE * INT8_SCALE)
+    d1_sq = torch.clamp(na - best, min=0.0) * inv
+    d2_sq = torch.clamp(na - second, min=0.0) * inv
+    if squeeze:
+        return d1_sq[0], d2_sq[0], best_idx[0]
+    return d1_sq, d2_sq, best_idx
+
+
+def _check_knn2_int8_args(desc1, desc2, mask2):
+    if desc1.dim() not in (2, 3) or desc2.dim() != desc1.dim():
+        raise ValueError("desc1 and desc2 must both be (N, D) or (B, N, D), "
+                         f"got {tuple(desc1.shape)} and {tuple(desc2.shape)}")
+    for name, t in (("desc1", desc1), ("desc2", desc2)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.shape[-1] != 128:
+            raise ValueError(f"descriptor width must be 128, got {t.shape[-1]}")
+    if desc1.dim() == 3 and desc1.shape[0] != desc2.shape[0]:
+        raise ValueError("desc1 and desc2 must have the same pair count")
+    if mask2 is not None:
+        if mask2.dtype != torch.bool or mask2.shape != desc2.shape[:-1]:
+            raise ValueError(f"mask2 must be bool {tuple(desc2.shape[:-1])}, "
+                             f"got {mask2.dtype} {tuple(mask2.shape)}")
+        if mask2.device != desc2.device:
+            raise ValueError("desc2 and mask2 must share a device")
+    if desc1.device != desc2.device:
+        raise ValueError("desc1 and desc2 must share a device")
+    if desc1.dim() == 3 and desc1.shape[0] > 65535:
+        raise ValueError("at most 65535 pairs per call")
+    if max(desc1.shape[-2], desc2.shape[-2]) >= 2 ** 31 // 128:
+        raise ValueError("too many descriptors for int32 offsets")
+
+
+def knn2_int8_kernel(q8, db8, m8):
+    """Launch kernel 2b on quantized operands: q8 (B, N1, 128) and db8
+    (B, N2, 128) contiguous int8 in [0, 127], m8 (B, N2) contiguous uint8
+    (nonzero = valid), all on one CUDA device.  Returns (d1_sq, d2_sq, idx)
+    (B, N1) f32, f32, int32; counts the launch in `knn2_int8.launches`."""
+    if q8.dim() != 3 or db8.dim() != 3 or m8.shape != db8.shape[:2] \
+            or q8.shape[0] != db8.shape[0]:
+        raise ValueError(f"shapes {tuple(q8.shape)}, {tuple(db8.shape)}, "
+                         f"{tuple(m8.shape)} are not (B, N1, 128), "
+                         "(B, N2, 128), (B, N2)")
+    if q8.dtype != torch.int8 or db8.dtype != torch.int8 \
+            or m8.dtype != torch.uint8:
+        raise TypeError("q8 and db8 must be int8 and m8 uint8")
+    if not (q8.is_contiguous() and db8.is_contiguous()
+            and m8.is_contiguous()):
+        raise ValueError("q8, db8 and m8 must be contiguous")
+    dev = q8.device
+    if dev.type != "cuda" or db8.device != dev or m8.device != dev:
+        raise ValueError("kernel 2b takes tensors on one CUDA device")
+    lib = cuda_build.load_library("knn2_int8")
+    fn = lib.knn2_int8_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    B, N1, D = q8.shape
+    N2 = db8.shape[1]
+    d1 = torch.empty((B, N1), dtype=torch.float32, device=dev)
+    d2 = torch.empty((B, N1), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, N1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q8.data_ptr(), db8.data_ptr(), m8.data_ptr(), B, N1, N2, D,
+                d1.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"knn2_int8 kernel launch failed: cudaError {rc}")
+    knn2_int8.launches += 1
+    return d1, d2, idx
+
+
+def knn2_int8(desc1, desc2, mask2=None):
+    """Exact 2-NN in int8-quantized space (counterpart of
+    `_knn2_pallas_int8_impl`, kernel 2b).
+
+    Args:
+      desc1: (N1, 128) or (B, N1, 128) non-negative unit queries, float32
+        or bfloat16 (quantized here with `quantize_desc_int8`).
+      desc2: (N2, 128) or (B, N2, 128) database, same type of layout.
+      mask2: (N2,) or (B, N2) bool validity, or None (all valid).
+    Returns (d1_sq, d2_sq, idx): (N1,) or (B, N1) f32, f32, int32, with the
+    semantics of `knn2_int8_reference` (exact values, lowest-column ties,
+    d2 = +inf with fewer than two valid columns).
+
+    CUDA tensors go through the kernel (one launch for the whole batch);
+    CPU tensors through `knn2_int8_reference`.  `knn2_int8.launches`
+    counts kernel launches.
+    """
+    _check_knn2_int8_args(desc1, desc2, mask2)
+    dev = desc1.device.type
+    if dev == "cpu":
+        return knn2_int8_reference(desc1, desc2, mask2)
+    if dev != "cuda":
+        raise ValueError(f"knn2_int8 has no implementation for device "
+                         f"{dev!r}")
+    squeeze = desc1.dim() == 2
+    desc1, desc2, mask2 = _int8_operands(desc1, desc2, mask2)
+    out = knn2_int8_kernel(quantize_desc_int8(desc1).contiguous(),
+                           quantize_desc_int8(desc2).contiguous(),
+                           mask2.to(torch.uint8).contiguous())
+    return tuple(t[0] for t in out) if squeeze else out
+
+
+knn2_int8.launches = 0
+
+
+def throughput_descriptors(n_pairs: int, n_kp: int, seed: int = 0):
+    """The matching benchmark's inputs (bench.py:178-182): non-negative
+    L2-normalized (n_pairs, n_kp, 128) query and database sets, numpy f32."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        d = np.abs(rng.normal(size=(n_pairs, n_kp, 128))).astype(np.float32)
+        out.append(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    return out
+
+
+def matching_throughput(n_pairs: int = 96, n_kp: int = 4096,
+                        iters: int = 6, device="cuda"):
+    """Pairs/s of the two fused 2-NN kernels on the same descriptors: the
+    port's counterpart of the JAX matching benchmark (bench.py:160-205).
+
+    `n_pairs` pairs are in flight per call; `iters` calls are chained with
+    a data dependency (each call's first best distance nudges the next
+    call's first query row, as the benchmark's bf16 carry does), after one
+    untimed warm-up chain; the host clock runs until a synchronize.  The
+    int8 path (kernel 2b, `knn2_int8`) quantizes the f32 database and the
+    bf16 carry inside every call, as `_knn2_pallas_int8_impl` does; the
+    bf16 path (kernel 2a, `knn2_gather`) reads both sets from one bf16
+    store.  Returns {"int8": pairs/s, "bf16": pairs/s}.
+    """
+    dev = torch.device(device)
+    d1, d2 = throughput_descriptors(n_pairs, n_kp)
+    carry = torch.tensor(d1, device=dev).to(torch.bfloat16)
+    db = torch.tensor(d2, device=dev)
+    store = torch.cat([carry, db.to(torch.bfloat16)])
+    mask = torch.ones(store.shape[:2], dtype=torch.bool, device=dev)
+    ii = torch.arange(n_pairs, dtype=torch.int32, device=dev)
+
+    def int8_step():
+        r = knn2_int8(carry, db)
+        carry[:, :1] += (r[0][:, :1, None] * 1e-12).to(carry.dtype)
+
+    def bf16_step():
+        r = knn2_gather(store, mask, ii, ii + n_pairs)
+        store[:n_pairs, :1] += (r[0][:, :1, None] * 1e-12).to(store.dtype)
+
+    out = {}
+    for name, step in (("int8", int8_step), ("bf16", bf16_step)):
+        for _ in range(2):      # a warm-up chain, then the timed one
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                step()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+        out[name] = n_pairs * iters / dt
+    return out
 
 
 def ratio_tests(d1_sq, d2_sq, idx2, mask1=None, ratio_good: float = 0.6,

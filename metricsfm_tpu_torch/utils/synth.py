@@ -147,6 +147,163 @@ def render_scene(seed: int = 0, n_cams: int = 6, width: int = 640,
             "focal": float(focal)}
 
 
+def render_aerial(seed: int = 0, rows: int = 10, cols: int = 20,
+                  width: int = 640, height: int = 480,
+                  focal: float | None = None, altitude: float = 40.0,
+                  forward_overlap: float = 0.70, side_overlap: float = 0.55,
+                  tile_rel: float = 0.5, relief: float = 0.12,
+                  n_waves: int = 10, near_k: int = 40, cam_chunk: int = 32,
+                  device="cuda"):
+    """Render a lawnmower-grid aerial survey over tiled terrain
+    (counterpart of metricsfm_tpu/utils/synth.render_aerial).
+
+    Nadir-ish cameras on a rows x cols grid with the given forward/side
+    overlap look down on a ground of textured tiles at different heights
+    (relief = peak height as a fraction of altitude) with small random
+    tilts: non-planar, so epipolar geometry is well-conditioned, while
+    covisibility stays local (each image overlaps only its grid
+    neighbours, like a real survey).
+
+    The host precompute (grid, poses, per (camera, tile) homography
+    inverses and camera-depth coefficients) is the JAX package's, in f64
+    numpy, so the same seed gives the same poses.  The per-pixel texture is
+    procedural, a per-tile sum of `n_waves` random plane waves, so the
+    shading is pure elementwise math: a loop over each camera's `near_k`
+    nearest tiles on `device`, `cam_chunk` cameras at a time, in f32 (the
+    JAX package runs the same loop as a lax.scan).
+
+    Returns the same dict schema as render_scene; `centers[:, :2]` doubles
+    as the UTM easting/northing for GPS-priori candidate selection
+    (ref initial_matching_graph.cc:83-162).
+    """
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if focal is None:
+        focal = 1.1 * width
+    # ground footprint of one image and grid spacing from overlap
+    fx = altitude * width / focal
+    fy = altitude * height / focal
+    sx = (1.0 - forward_overlap) * fx      # along a flight line (cols)
+    sy = (1.0 - side_overlap) * fy         # across flight lines (rows)
+    extent_x = (cols - 1) * sx + 1.2 * fx
+    extent_y = (rows - 1) * sy + 1.2 * fy
+    x_min = -extent_x / 2.0
+    y_min = -extent_y / 2.0
+
+    ts = tile_rel * min(fx, fy)            # tile edge length
+    nx = int(np.ceil(extent_x / ts)) + 1
+    ny = int(np.ceil(extent_y / ts)) + 1
+    n_tiles = nx * ny
+    dz = rng.uniform(-relief, relief, n_tiles) * altitude
+    tilt_u = rng.uniform(-0.08, 0.08, n_tiles) * ts
+    tilt_v = rng.uniform(-0.08, 0.08, n_tiles) * ts
+    ix = np.tile(np.arange(nx), ny)
+    iy = np.repeat(np.arange(ny), nx)
+    P0 = np.stack([x_min + ix * ts, y_min + iy * ts, altitude + dz], 1)
+    U = np.stack([np.full(n_tiles, ts), np.zeros(n_tiles), tilt_u], 1)
+    Vv = np.stack([np.zeros(n_tiles), np.full(n_tiles, ts), tilt_v], 1)
+    tile_centers = P0 + 0.5 * U + 0.5 * Vv
+    # per-tile plane-wave texture coefficients: log-spaced cycles-per-tile
+    # (multi-octave), random direction/phase, 1/sqrt(f) amplitude rolloff
+    fmag = np.exp(rng.uniform(np.log(1.5), np.log(60.0),
+                              (n_tiles, n_waves)))
+    fdir = rng.uniform(0, 2 * np.pi, (n_tiles, n_waves))
+    wf1 = fmag * np.cos(fdir)
+    wf2 = fmag * np.sin(fdir)
+    wph = rng.uniform(0, 2 * np.pi, (n_tiles, n_waves))
+    wamp = 1.0 / np.sqrt(fmag)
+    wamp *= 0.42 / np.abs(wamp).sum(1, keepdims=True)
+
+    n_cams = rows * cols
+    Km = np.array([[focal, 0.0, width / 2.0],
+                   [0.0, focal, height / 2.0],
+                   [0.0, 0.0, 1.0]])
+    poses = np.zeros((n_cams, 6), np.float64)
+    centers = np.zeros((n_cams, 3), np.float64)
+    Rs = np.zeros((n_cams, 3, 3))
+    ci = 0
+    for row in range(rows):
+        # lawnmower: alternate direction per flight line
+        col_order = range(cols) if row % 2 == 0 else range(cols - 1, -1, -1)
+        for col in col_order:
+            c = np.array([
+                x_min + 0.6 * fx + col * sx + rng.normal(0, 0.02 * sx),
+                y_min + 0.6 * fy + row * sy + rng.normal(0, 0.02 * sy),
+                rng.normal(0, 0.01 * altitude),
+            ])
+            target = np.array([c[0], c[1], altitude]) \
+                + rng.normal(0, 0.01 * altitude, 3) * np.array([1, 1, 0])
+            R = _look_at(c, target)
+            poses[ci] = np.concatenate([np_geom.matrix_to_angle_axis(R),
+                                        -R @ c])
+            centers[ci] = c
+            Rs[ci] = R
+            ci += 1
+
+    # host precompute: per (camera, k-nearest-tile) homography inverse +
+    # camera-depth affine coefficients (all 3x3 algebra in f64 here; the
+    # device loop sees only per-pixel elementwise math)
+    Kn = min(near_k, n_tiles)
+    d2 = ((tile_centers[None, :, :2] - centers[:, None, :2]) ** 2).sum(-1)
+    near = np.argsort(d2, axis=1)[:, :Kn]                  # (C, Kn)
+    tvecs = -np.einsum("cij,cj->ci", Rs, centers)          # (C, 3)
+    e3 = np.array([0.0, 0.0, 1.0])
+    # Hm = K (R A + t e3^T), A = [U | V | P0] columns, per (camera, tile)
+    An = np.stack([U[near], Vv[near], P0[near]], axis=3)   # (C, Kn, 3, 3)
+    RA = np.einsum("cij,ckjl->ckil", Rs, An)
+    Hm = np.einsum("ij,ckjl->ckil", Km,
+                   RA + tvecs[:, None, :, None] * e3[None, None, None, :])
+    Hinv = np.linalg.inv(Hm)                               # (C, Kn, 3, 3)
+    r3 = Rs[:, 2, :]                                       # (C, 3)
+    zu = np.einsum("ci,cki->ck", r3, U[near])
+    zv = np.einsum("ci,cki->ck", r3, Vv[near])
+    z0 = np.einsum("ci,cki->ck", r3, P0[near]) + tvecs[:, 2:3]
+
+    dev = torch.device(device)
+
+    def t32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    xpix = (torch.arange(width, dtype=torch.float32, device=dev)
+            + 0.5)[None, :].expand(height, width)
+    ypix = (torch.arange(height, dtype=torch.float32, device=dev)
+            + 0.5)[:, None].expand(height, width)
+    two_pi = 2 * np.pi
+
+    images = np.zeros((n_cams, height, width), np.float32)
+    for lo in range(0, n_cams, cam_chunk):
+        sl = slice(lo, min(lo + cam_chunk, n_cams))
+        hinv, zuc, zvc, z0c = (t32(a[sl]) for a in (Hinv, zu, zv, z0))
+        f1, f2, amp, ph = (t32(a[near[sl]]) for a in (wf1, wf2, wamp, wph))
+        B = hinv.shape[0]
+        img = torch.zeros((B, height, width), dtype=torch.float32,
+                          device=dev)
+        bz = torch.full((B, height, width), float("inf"),
+                        dtype=torch.float32, device=dev)
+        for k in range(Kn):
+            hi = hinv[:, k, :, :, None, None]              # (B, 3, 3, 1, 1)
+            den = hi[:, 2, 0] * xpix + hi[:, 2, 1] * ypix + hi[:, 2, 2]
+            den = torch.where(torch.abs(den) < 1e-12, 1e-12, den)
+            s = (hi[:, 0, 0] * xpix + hi[:, 0, 1] * ypix + hi[:, 0, 2]) / den
+            t = (hi[:, 1, 0] * xpix + hi[:, 1, 1] * ypix + hi[:, 1, 2]) / den
+            z = (s * zuc[:, k, None, None] + t * zvc[:, k, None, None]
+                 + z0c[:, k, None, None])
+            hit = ((s >= 0) & (s <= 1) & (t >= 0) & (t <= 1)
+                   & (z > 0.2) & (z < bz))
+            val = torch.full_like(s, 0.5)
+            for w in range(n_waves):
+                val = val + amp[:, k, w, None, None] * torch.cos(
+                    two_pi * (f1[:, k, w, None, None] * s
+                              + f2[:, k, w, None, None] * t)
+                    + ph[:, k, w, None, None])
+            img = torch.where(hit, val, img)
+            bz = torch.where(hit, z, bz)
+        images[sl] = torch.clamp(img, 0.0, 1.0).cpu().numpy()
+    return {"images": images, "poses": poses, "centers": centers,
+            "focal": float(focal)}
+
+
 def write_scene_images(fold: str, scene: dict) -> List[str]:
     """Write the rendered views as 8-bit PNGs into `fold` (what the Database
     discovery stage expects)."""

@@ -25,6 +25,8 @@ MODULES = [
     "metricsfm_tpu_torch.models.dense",
     "metricsfm_tpu_torch.io.exports",
     "metricsfm_tpu_torch.utils.synth",
+    "metricsfm_tpu_torch.utils.utm",
+    "metricsfm_tpu_torch.ops.matching",
 ]
 
 
