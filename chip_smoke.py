@@ -6,18 +6,25 @@ Phases, each printing its own line with seconds; the first failure raises
 and the script exits non-zero:
   1. refuse to run without CUDA; print the card's name and power limit;
   2. build every CUDA kernel from ops/csrc with nvcc (one nvcc per source,
-     all started together);
+     all started together) and print each kernel's registers, spills,
+     shared memory and any wgmma-serialization warning from the build log;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, and time both beside the kernel's
-     bound: knn2 (2a) at the sfm verify batch; knn2_int8 (2b) at the
-     matching-throughput shape (96 pairs of 4096 x 4096 x 128), a ragged
-     masked pair, one valid column, a duplicate-best tie and N2 = 9000,
-     exact on idx and both distances; census_cost (2c), sgm_horizontal
-     (2d), sgm_partial (2e), sgm_total_wta (2f), sgm_total (2g) and wta
-     (2h) at 768x1024 / D=128 and at a ragged 37x61 / D=48, exact on every
-     output (2h also on the skewed right volume, an int32 and a float32
-     volume) and within 1e-5 on the disparity after the torch tail; the
-     bare products (bf16 torch.matmul, torch._int_mm) are timed as
+     bound: knn2 (2a) at the sfm verify batch (and timed at the aerial
+     batch, 32 pairs of 2048); knn2_int8 (2b) at the matching-throughput
+     shape (96 pairs of 4096 x 4096 x 128), a ragged masked pair, one
+     valid column, a duplicate-best tie and N2 = 9000, exact on idx and
+     both distances, timed through its wrapper, alone, and its fused
+     quantize pass alone (bit-equal to quantize_desc_int8 and its norms);
+     both 2-NN kernels also on the edges of their 128 x 128 tiling (N =
+     50, 2047, 4097; B = 1; a wholly masked database tile; an image with
+     no valid column, d1 = d2 = +inf; the boundary trap: a tile past row N
+     reads the next image, whose first rows equal the queries);
+     census_cost (2c), sgm_horizontal (2d), sgm_partial (2e),
+     sgm_total_wta (2f), sgm_total (2g) and wta (2h) at 768x1024 / D=128
+     and at a ragged 37x61 / D=48, exact on every output (2h also on the
+     skewed right volume, an int32 and a float32 volume) and within 1e-5
+     on the disparity after the torch tail; the bare products (bf16 torch.matmul, torch._int_mm) are timed as
      yardsticks only;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
      scene with 4096 keypoints per image, with the knn2 launch count reset
@@ -167,7 +174,8 @@ def compare_knn2(store_np, mask_np, ii_np, jj_np, label):
     agree = float((kidx == ridx).mean())
     # off exact ties (best and second within f32 summation noise) the
     # indices must agree exactly
-    clear = (r2 - r1) > 2e-5
+    with np.errstate(invalid="ignore"):     # inf - inf on empty rows
+        clear = (r2 - r1) > 2e-5
     clear_agree = float((kidx == ridx)[clear].mean()) if clear.any() else 1.0
     print(f"  knn2 {label}: shape {store_np.shape} B={len(ii_np)} "
           f"max|d2 err|={err:.3g} idx agree={agree:.6f} "
@@ -217,6 +225,7 @@ def knn2_phase():
     m4 = np.ones((2, 512), bool)
     compare_knn2(s4, m4, np.array([0], np.int32), np.array([1], np.int32),
                  "duplicate-best tie")
+    errs += knn2_tiling_cases(rng)
     dev = torch.device("cuda")
     st = torch.tensor(s4, device=dev).to(torch.bfloat16)
     d1, d2, idx = matching.knn2_gather(st, torch.tensor(m4, device=dev),
@@ -230,6 +239,7 @@ def knn2_phase():
                              "column with second == best")
 
     # time kernel vs plain at the main path's verify batch
+    aerial_ms = knn2_time_aerial(rng)
     store_t = torch.tensor(store, device=dev).to(torch.bfloat16)
     mask_t = torch.tensor(mask, device=dev)
     ii_t = torch.tensor(ii, device=dev)
@@ -260,7 +270,63 @@ def knn2_phase():
             "replaces": "metricsfm_tpu/ops/pallas/match_kernel.py:45",
             "max_abs_err": max(errs), "ms": min(ms, ms2),
             "plain_ms": min(plain_ms, plain_ms2), **b, "library_ms": None,
-            "product_only_ms": prod_ms}
+            "product_only_ms": prod_ms, "aerial_batch_ms": aerial_ms}
+
+
+def knn2_tiling_cases(rng):
+    """2a on the edges of its 128 x 128 tiling: N below one tile and one
+    past a multiple, B = 1, a wholly masked database tile, an image with no
+    valid row (d1 = d2 = +inf), and the image-boundary trap (the tensor
+    map runs on into the next image, whose first rows equal the queries).
+    Returns the distance errors."""
+    import numpy as np
+
+    errs = []
+    for n, b in ((50, 3), (2047, 4), (4097, 1)):
+        st = unit_store(rng, b + 1, n)
+        m = rng.uniform(size=(b + 1, n)) > 0.05
+        ii = np.arange(b, dtype=np.int32)
+        errs.append(compare_knn2(st, m, ii, ii + 1, f"N={n} B={b}")[0])
+    st = unit_store(rng, 3, 1000)
+    m = rng.uniform(size=(3, 1000)) > 0.05
+    m[1, 256:384] = False
+    m[2] = False
+    errs.append(compare_knn2(st, m, np.array([0, 0], np.int32),
+                             np.array([1, 2], np.int32),
+                             "masked tile + no valid row")[0])
+    # pair (0, 1) with N = 1000: the last tile reads image 2's first 24
+    # rows, set equal to the queries; a leak would win with s = 1
+    st[2, :24] = st[0, :24]
+    m[:] = True
+    errs.append(compare_knn2(st, m, np.array([0], np.int32),
+                             np.array([1], np.int32),
+                             "image-boundary trap N=1000")[0])
+    return errs
+
+
+def knn2_time_aerial(rng):
+    """2a at the aerial path's batch (32 pairs of 2048 x 2048 x 128)."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    dev = torch.device("cuda")
+    store = torch.tensor(unit_store(rng, 8, 2048), device=dev).to(
+        torch.bfloat16)
+    mask = torch.tensor(rng.uniform(size=(8, 2048)) > 0.03, device=dev)
+    pairs = list(itertools.combinations(range(8), 2))
+    pairs = pairs + pairs[:32 - len(pairs)]
+    ii = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
+    jj = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
+    ms = min(cuda_time_ms(lambda: matching.knn2_gather(store, mask, ii, jj))
+             for _ in range(2))
+    b = bound(2.0 * 32 * 2048 * 2048 * 128, PEAK_BF16,
+              nbytes_of(store, mask, ii, jj) + 32 * 2048 * 12)
+    print(f"  knn2 aerial batch B=32 N=2048: kernel {ms:.4f} ms, "
+          f"{bound_text(b)}", flush=True)
+    return ms
 
 
 def compare_knn2_int8(q, db, mask, label):
@@ -334,17 +400,18 @@ def knn2_int8_phase():
     errs.append(err)
     if int(li.max()) < 8192:
         raise AssertionError("N2=9000: no best column past 8192")
+    errs += knn2_int8_tiling_cases(rng, nonneg)
+    compare_quantize(q, db, rng)
 
     # times at the bench shape: the wrapper as the path calls it (its
     # quantization included), the kernel alone on quantized operands, the
     # plain version, and the int8 product alone as a yardstick
-    q8 = matching.quantize_desc_int8(q)
-    db8 = matching.quantize_desc_int8(db)
-    m8 = torch.ones(db8.shape[:2], dtype=torch.uint8, device=dev)
+    q8, nq, db8, nb = matching.quantize_pair_int8(q, db)
     plain_ms = cuda_time_ms(lambda: matching.knn2_int8_reference(q, db),
                             reps=3, warmup=1)
     ms = cuda_time_ms(lambda: matching.knn2_int8(q, db))
-    kern_ms = cuda_time_ms(lambda: matching.knn2_int8_kernel(q8, db8, m8))
+    kern_ms = cuda_time_ms(lambda: matching.knn2_int8_kernel(q8, db8, nq, nb))
+    quant_ms = cuda_time_ms(lambda: matching.quantize_pair_int8(q, db))
     ms2 = cuda_time_ms(lambda: matching.knn2_int8(q, db))
     plain_ms2 = cuda_time_ms(lambda: matching.knn2_int8_reference(q, db),
                              reps=3, warmup=1)
@@ -352,9 +419,11 @@ def knn2_int8_phase():
                                                  db8[0].t()))
     ops = 2.0 * 96 * 4096 * 4096 * 128
     b = bound(ops, PEAK_INT8, nbytes_of(q, db) + 96 * 4096 * 12)
-    bk = bound(ops, PEAK_INT8, nbytes_of(q8, db8, m8) + 96 * 4096 * 12)
+    bk = bound(ops, PEAK_INT8, nbytes_of(q8, db8, nq, nb) + 96 * 4096 * 12)
+    bq = bound(0, PEAK_INT8, nbytes_of(q, db, q8, db8, nq, nb))
     print(f"  knn2_int8 96x4096x4096: wrapper {ms:.3f}/{ms2:.3f} ms, kernel "
           f"alone {kern_ms:.3f} ms ({ops / (kern_ms * 1e9):.1f} TOP/s), "
+          f"quantize pass alone {quant_ms:.4f} ms ({bound_text(bq)}), "
           f"plain {plain_ms:.3f}/{plain_ms2:.3f} ms, {bound_text(b)}, "
           f"kernel alone {bound_text(bk)}; product only, not the same "
           f"function (torch._int_mm of the 393216x128 queries by one pair's "
@@ -364,7 +433,82 @@ def knn2_int8_phase():
             "replaces": "metricsfm_tpu/ops/pallas/match_kernel.py:170",
             "max_abs_err": max(errs), "ms": min(ms, ms2),
             "plain_ms": min(plain_ms, plain_ms2), **b, "library_ms": None,
-            "kernel_only_ms": kern_ms, "product_only_ms": prod_ms}
+            "kernel_only_ms": kern_ms, "kernel_only_bound_ms": bk["bound_ms"],
+            "quantize_ms": quant_ms, "quantize_bound_ms": bq["bound_ms"],
+            "product_only_ms": prod_ms}
+
+
+def knn2_int8_tiling_cases(rng, nonneg):
+    """2b on the edges of its tiling, exact against the plain version: N
+    below one tile and one past a multiple, B = 1, a wholly masked
+    database tile, a pair with no valid column (d1 = d2 = +inf, idx 0),
+    the pair-boundary trap (the database map runs on into the next pair,
+    whose first rows equal the queries) and an empty database."""
+    import torch
+
+    dev = torch.device("cuda")
+    errs = []
+    for n, b in ((50, 3), (2047, 4), (4097, 1)):
+        m = torch.tensor(rng.uniform(size=(b, n)) > 0.05, device=dev)
+        errs.append(compare_knn2_int8(nonneg(b, n), nonneg(b, n), m,
+                                      f"N1=N2={n} B={b}")[1])
+    q, db = nonneg(2, 1000), nonneg(2, 1000)
+    m = torch.tensor(rng.uniform(size=(2, 1000)) > 0.05, device=dev)
+    m[0, 256:384] = False
+    m[1] = False
+    (g1, g2, gi), err = compare_knn2_int8(q, db, m,
+                                          "masked tile + no valid column")
+    errs.append(err)
+    if not (torch.isinf(g1[1]).all() and torch.isinf(g2[1]).all()
+            and (gi[1] == 0).all()):
+        raise AssertionError("no valid column: d1, d2 not +inf or idx != 0")
+    db[1, :24] = q[0, :24]
+    m[:] = True
+    (_, _, gi), err = compare_knn2_int8(q, db, m, "pair-boundary trap N=1000")
+    errs.append(err)
+    if int(gi.max()) >= 1000:
+        raise AssertionError("pair-boundary trap: a column past N2 won")
+    # no database row at all: no launch, the plain version's +inf and 0
+    (e1, e2, ei), err = compare_knn2_int8(q, db[:, :0], m[:, :0], "N2=0")
+    errs.append(err)
+    if not (torch.isinf(e1).all() and torch.isinf(e2).all()
+            and (ei == 0).all()):
+        raise AssertionError("N2=0: d1, d2 not +inf or idx != 0")
+    return errs
+
+
+def compare_quantize(q, db, rng):
+    """The fused quantize pass (one launch for queries and database) against
+    its plain version, bit for bit: int8 rows, query norms, database norms
+    with masked rows at INT8_NB_MASKED; also on values at the .5 rounding
+    boundary."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    dev = q.device
+    edge = torch.tensor(np.abs(unit_store(rng, 1, 64))[0], device=dev)
+    edge[0, :8] = torch.tensor([0.5, 1.5, 2.5, 3.5, 100.5, 126.5, 127.5,
+                                300.0], device=dev) / 256
+    edge[1, :3] = torch.tensor([-0.2, 0.0, 64.5 / 256], device=dev)
+    mask = torch.tensor(rng.uniform(size=db.shape[:2]) > 0.1, device=dev)
+    for label, a, b, m in (("bench", q, db, mask),
+                           ("half steps f32/bf16", edge,
+                            edge.to(torch.bfloat16), None)):
+        got = matching.quantize_pair_int8(a, b, m)
+        torch.cuda.synchronize()
+        want = (*matching.quantize_int8_reference(a),
+                *matching.quantize_int8_reference(b, m))
+        for what, x, y in zip(("q8", "nq", "db8", "nb"), got, want):
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or not torch.equal(x, y):
+                raise AssertionError(f"quantize {label}: {what} differs "
+                                     "from the plain version")
+        if not torch.equal(got[0], matching.quantize_desc_int8(a)):
+            raise AssertionError(f"quantize {label}: q8 != quantize_desc_int8")
+        print(f"  quantize pass {label}: {tuple(a.shape)} {a.dtype} + "
+              f"{tuple(b.shape)} {b.dtype}, q8, norms and masked nb equal "
+              "to plain", flush=True)
 
 
 SGM_ROWS = (
@@ -779,9 +923,11 @@ def throughput_phase(n_pairs=96, n_kp=4096, iters=6):
 
     torch.cuda.synchronize()
     matching.knn2_int8.launches = 0
+    matching.quantize_pair_int8.launches = 0
     matching.knn2_gather.launches = 0
     rates = matching.matching_throughput(n_pairs, n_kp, iters, device="cuda")
     launches = {"knn2_int8": matching.knn2_int8.launches,
+                "quantize_pair_int8": matching.quantize_pair_int8.launches,
                 "knn2": matching.knn2_gather.launches}
     print(f"  {n_pairs} pairs x {n_kp}^2 x 128, {iters} chained calls: int8 "
           f"(2b) {rates['int8']:.1f} pairs/s, bf16 (2a) {rates['bf16']:.1f} "
@@ -1028,8 +1174,9 @@ def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate")):
         info = cuda_build.build_info[name]
         print(f"  {name}.cu built in {info['seconds']:.3f} s", flush=True)
         for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln \
-                    or "Function properties" in ln:
+            if any(k in ln for k in ("registers", "spill", "smem",
+                                     "Function properties", "wgmma",
+                                     "setmaxnreg", "arning")):
                 print("    " + ln.strip(), flush=True)
 
 
@@ -1091,6 +1238,8 @@ def main(argv=None):
             launches[k] = launches.get(k, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "knn2_int8":   # its quantize pass, same row
+            row["quantize_launches"] = launches["quantize_pair_int8"]
     check_launches({r["name"]: r["launches"] for r in rows}, "a path")
     if args.profile:
         with phase("9b profiled end-to-end paths"):

@@ -3,8 +3,9 @@
 Each source compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), for sm_90a
 (Hopper).  Libraries land in ``metricsfm_tpu_torch/_build/``, named by a
-hash of their source, so an edited kernel is rebuilt and a built one is
-reused.  A missing nvcc or a failed build raises: there is no fallback.
+hash of their source and of the shared headers (csrc/*.cuh), so an edited
+kernel is rebuilt and a built one is reused.  A missing nvcc or a failed
+build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -44,8 +45,12 @@ def load_library(name: str) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     out_dir = os.path.abspath(BUILD_DIR)
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, f"lib{name}_{digest}.so")

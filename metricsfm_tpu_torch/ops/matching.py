@@ -17,8 +17,11 @@ Any other device raises; a failed kernel build raises.
 `knn2_int8` is the int8 variant (2-NN in the space of descriptors
 quantized to [0, 127]), with the same split: the kernel
 ops/csrc/knn2_int8.cu (the port of match_kernel.py:_kernel_int8) on CUDA,
-`knn2_int8_reference` on the CPU.  The JAX package reaches it only from
-its matching benchmark; `matching_throughput` is the port's counterpart.
+`knn2_int8_reference` on the CPU.  Its operands come from one fused
+quantize pass (`quantize_pair_int8`, a second entry of knn2_int8.cu;
+plain version `quantize_int8_reference`).  The JAX package reaches it only
+from its matching benchmark; `matching_throughput` is the port's
+counterpart.
 """
 from __future__ import annotations
 
@@ -73,6 +76,30 @@ def knn2_reference(desc_store, mask, ii, jj, chunk: int = 2048):
     return d1_sq, d2_sq, best_idx
 
 
+_KNN2_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p] * 4
+_SIGNATURES = {   # (library, symbol): argtypes; every entry returns c_int
+    ("knn2", "knn2_launch"): _KNN2_ARGS,
+    ("knn2_int8", "knn2_int8_launch"): _KNN2_ARGS,
+    ("knn2_int8", "knn2_int8_quantize_launch"):   # two sets, then stream
+        ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+         + [ctypes.c_void_p] * 3) * 2 + [ctypes.c_void_p],
+}
+_fns = {}
+
+
+def _kernel_fn(lib: str, sym: str):
+    """The C entry `sym` of csrc/<lib>.cu, built and loaded on first use,
+    with its ctypes signature set once."""
+    fn = _fns.get((lib, sym))
+    if fn is None:
+        fn = getattr(cuda_build.load_library(lib), sym)
+        fn.argtypes = _SIGNATURES[(lib, sym)]
+        fn.restype = ctypes.c_int
+        _fns[(lib, sym)] = fn
+    return fn
+
+
 def _check_knn2_args(desc_store, mask, ii, jj):
     if desc_store.dim() != 3:
         raise ValueError(f"desc_store must be (M, N, D), got {tuple(desc_store.shape)}")
@@ -91,22 +118,15 @@ def _check_knn2_args(desc_store, mask, ii, jj):
         raise ValueError("ii and jj must have the same length")
     if not all(t.device == desc_store.device for t in (mask, ii, jj)):
         raise ValueError("desc_store, mask, ii and jj must share a device")
-    if N >= 2 ** 31 or ii.shape[0] > 65535:
-        raise ValueError("N must fit int32 and at most 65535 pairs per call")
+    if M * N >= 2 ** 31 or ii.shape[0] > 65535:
+        raise ValueError("M * N must fit int32 and at most 65535 pairs per "
+                         "call")
 
 
 def _launch_knn2_cuda(desc_store, mask, ii, jj):
-    lib = cuda_build.load_library("knn2")
-    fn = lib.knn2_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    fn = _kernel_fn("knn2", "knn2_launch")
     M, N, D = desc_store.shape
     B = ii.shape[0]
-    if B:
-        lo_hi = torch.stack([ii.min(), ii.max(), jj.min(), jj.max()]).tolist()
-        if min(lo_hi) < 0 or max(lo_hi) >= M:
-            raise IndexError(f"pair indices {lo_hi} outside [0, {M})")
     desc_store = desc_store.contiguous()
     mask = mask.contiguous()
     ii = ii.contiguous()
@@ -118,7 +138,7 @@ def _launch_knn2_cuda(desc_store, mask, ii, jj):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(desc_store.data_ptr(), mask.data_ptr(), ii.data_ptr(),
-                jj.data_ptr(), B, N, D, d1.data_ptr(), d2.data_ptr(),
+                jj.data_ptr(), M, B, N, D, d1.data_ptr(), d2.data_ptr(),
                 idx.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"knn2 kernel launch failed: cudaError {rc}")
@@ -138,13 +158,19 @@ def knn2_gather(desc_store, mask, ii, jj):
 
     CUDA tensors go through the kernel (one launch for the whole batch);
     CPU tensors through `knn2_reference`.  `knn2_gather.launches` counts
-    kernel launches.
+    kernel launches.  A pair index outside [0, M) raises: on the CPU here,
+    on the card without a host sync, the kernel trapping at launch (the
+    error surfaces at the next synchronize).
     """
     _check_knn2_args(desc_store, mask, ii, jj)
     dev = desc_store.device.type
     if dev == "cuda":
         return _launch_knn2_cuda(desc_store, mask, ii, jj)
     if dev == "cpu":
+        M = desc_store.shape[0]
+        both = torch.cat((ii, jj))
+        if both.numel() and not bool(((both >= 0) & (both < M)).all()):
+            raise IndexError(f"knn2: pair indices outside [0, {M})")
         return knn2_reference(desc_store, mask, ii, jj)
     raise ValueError(f"knn2 has no implementation for device {dev!r}")
 
@@ -186,6 +212,71 @@ def quantize_desc_int8(desc):
     (round half to even, as jnp.round)."""
     return torch.clamp(torch.round(desc.float() * INT8_SCALE), 0, 127).to(
         torch.int8)
+
+
+INT8_NB_MASKED = 1 << 26    # the norm kernel 2b reads for a masked row
+
+
+def quantize_int8_reference(desc, mask=None):
+    """Plain version of the fused quantize pass: (q8, norms) with q8 =
+    `quantize_desc_int8(desc)` (any leading axes, last axis 128) and norms
+    the int32 |q8|^2 of each row, `INT8_NB_MASKED` where `mask` (bool, the
+    leading axes) is False."""
+    q8 = quantize_desc_int8(desc)
+    q = q8.to(torch.int32)
+    norms = torch.sum(q * q, dim=-1, dtype=torch.int32)
+    if mask is not None:
+        norms = torch.where(mask.bool(), norms, INT8_NB_MASKED)
+    return q8, norms
+
+
+def _quantize_launch_args(desc, mask):
+    if desc.data_ptr() % 16:
+        desc = desc.clone()
+    q8 = torch.empty(desc.shape, dtype=torch.int8, device=desc.device)
+    norms = torch.empty(desc.shape[:-1], dtype=torch.int32,
+                        device=desc.device)
+    m = None if mask is None else mask.bool().contiguous().view(torch.uint8)
+    args = (desc.data_ptr(), int(desc.dtype == torch.bfloat16),
+            desc.numel() // 128, 0 if m is None else m.data_ptr(),
+            q8.data_ptr(), norms.data_ptr())
+    return args, (q8, norms, desc, m)
+
+
+def quantize_pair_int8(desc1, desc2, mask2=None):
+    """Quantize a query and a database set for kernel 2b in one pass:
+    returns (q8, nq, db8, nb), q8 / db8 int8 like `quantize_desc_int8`, nq
+    the int32 query norms, nb the database norms with `INT8_NB_MASKED` on
+    rows where mask2 is False.  desc* are f32 or bf16 with last axis 128.
+
+    CUDA tensors go through the fused quantize kernel (one launch for both
+    sets, counted in `quantize_pair_int8.launches`); CPU tensors through
+    `quantize_int8_reference`.
+    """
+    dev = desc1.device
+    if dev.type == "cpu":
+        return (*quantize_int8_reference(desc1),
+                *quantize_int8_reference(desc2, mask2))
+    if dev.type != "cuda" or desc2.device != dev:
+        raise ValueError("quantize_pair_int8 takes tensors on one CPU or "
+                         "CUDA device")
+    for t in (desc1, desc2):
+        if t.dtype not in (torch.float32, torch.bfloat16) \
+                or t.shape[-1] != 128:
+            raise ValueError("descriptors must be f32 or bf16 (..., 128)")
+    a1, keep1 = _quantize_launch_args(desc1.contiguous(), None)
+    a2, keep2 = _quantize_launch_args(desc2.contiguous(), mask2)
+    fn = _kernel_fn("knn2_int8", "knn2_int8_quantize_launch")
+    with torch.cuda.device(dev):
+        rc = fn(*a1, *a2, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8 quantize kernel launch failed: "
+                           f"cudaError {rc}")
+    quantize_pair_int8.launches += 1
+    return keep1[0], keep1[1], keep2[0], keep2[1]
+
+
+quantize_pair_int8.launches = 0
 
 
 def _int8_operands(desc1, desc2, mask2):
@@ -274,39 +365,44 @@ def _check_knn2_int8_args(desc1, desc2, mask2):
         raise ValueError("too many descriptors for int32 offsets")
 
 
-def knn2_int8_kernel(q8, db8, m8):
-    """Launch kernel 2b on quantized operands: q8 (B, N1, 128) and db8
-    (B, N2, 128) contiguous int8 in [0, 127], m8 (B, N2) contiguous uint8
-    (nonzero = valid), all on one CUDA device.  Returns (d1_sq, d2_sq, idx)
-    (B, N1) f32, f32, int32; counts the launch in `knn2_int8.launches`."""
-    if q8.dim() != 3 or db8.dim() != 3 or m8.shape != db8.shape[:2] \
-            or q8.shape[0] != db8.shape[0]:
+def knn2_int8_kernel(q8, db8, nq, nb):
+    """Launch kernel 2b on quantized operands (as `quantize_pair_int8`
+    returns them): q8 (B, N1, 128) and db8 (B, N2, 128) contiguous int8 in
+    [0, 127], nq (B, N1) int32 query norms, nb (B, N2) int32 database norms
+    (`INT8_NB_MASKED` on masked rows), all on one CUDA device.  The kernel
+    checks nothing about nq and nb: they must be `quantize_pair_int8`'s.
+    Returns (d1_sq, d2_sq, idx) (B, N1) f32, f32, int32 (+inf, +inf, 0 for
+    every row when N2 = 0, without a launch); counts the launch in
+    `knn2_int8.launches`."""
+    if q8.dim() != 3 or db8.dim() != 3 or nq.shape != q8.shape[:2] \
+            or nb.shape != db8.shape[:2] or q8.shape[0] != db8.shape[0]:
         raise ValueError(f"shapes {tuple(q8.shape)}, {tuple(db8.shape)}, "
-                         f"{tuple(m8.shape)} are not (B, N1, 128), "
-                         "(B, N2, 128), (B, N2)")
+                         f"{tuple(nq.shape)}, {tuple(nb.shape)} are not "
+                         "(B, N1, 128), (B, N2, 128), (B, N1), (B, N2)")
     if q8.dtype != torch.int8 or db8.dtype != torch.int8 \
-            or m8.dtype != torch.uint8:
-        raise TypeError("q8 and db8 must be int8 and m8 uint8")
-    if not (q8.is_contiguous() and db8.is_contiguous()
-            and m8.is_contiguous()):
-        raise ValueError("q8, db8 and m8 must be contiguous")
+            or nq.dtype != torch.int32 or nb.dtype != torch.int32:
+        raise TypeError("q8 and db8 must be int8, nq and nb int32")
+    ops = (q8, db8, nq, nb)
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("q8, db8, nq and nb must be contiguous")
     dev = q8.device
-    if dev.type != "cuda" or db8.device != dev or m8.device != dev:
+    if dev.type != "cuda" or any(t.device != dev for t in ops):
         raise ValueError("kernel 2b takes tensors on one CUDA device")
-    lib = cuda_build.load_library("knn2_int8")
-    fn = lib.knn2_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
     B, N1, D = q8.shape
     N2 = db8.shape[1]
+    if N2 == 0:     # no database row: no match, as in the plain version
+        inf = torch.full((B, N1), float("inf"), device=dev)
+        return inf, inf.clone(), torch.zeros((B, N1), dtype=torch.int32,
+                                             device=dev)
+    fn = _kernel_fn("knn2_int8", "knn2_int8_launch")
     d1 = torch.empty((B, N1), dtype=torch.float32, device=dev)
     d2 = torch.empty((B, N1), dtype=torch.float32, device=dev)
     idx = torch.empty((B, N1), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q8.data_ptr(), db8.data_ptr(), m8.data_ptr(), B, N1, N2, D,
-                d1.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream)
+        rc = fn(q8.data_ptr(), db8.data_ptr(), nq.data_ptr(), nb.data_ptr(),
+                B, N1, N2, D, d1.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+                stream)
     if rc != 0:
         raise RuntimeError(f"knn2_int8 kernel launch failed: cudaError {rc}")
     knn2_int8.launches += 1
@@ -319,7 +415,7 @@ def knn2_int8(desc1, desc2, mask2=None):
 
     Args:
       desc1: (N1, 128) or (B, N1, 128) non-negative unit queries, float32
-        or bfloat16 (quantized here with `quantize_desc_int8`).
+        or bfloat16 (quantized here, on the card by `quantize_pair_int8`).
       desc2: (N2, 128) or (B, N2, 128) database, same type of layout.
       mask2: (N2,) or (B, N2) bool validity, or None (all valid).
     Returns (d1_sq, d2_sq, idx): (N1,) or (B, N1) f32, f32, int32, with the
@@ -339,9 +435,8 @@ def knn2_int8(desc1, desc2, mask2=None):
                          f"{dev!r}")
     squeeze = desc1.dim() == 2
     desc1, desc2, mask2 = _int8_operands(desc1, desc2, mask2)
-    out = knn2_int8_kernel(quantize_desc_int8(desc1).contiguous(),
-                           quantize_desc_int8(desc2).contiguous(),
-                           mask2.to(torch.uint8).contiguous())
+    q8, nq, db8, nb = quantize_pair_int8(desc1, desc2, mask2)
+    out = knn2_int8_kernel(q8, db8, nq, nb)
     return tuple(t[0] for t in out) if squeeze else out
 
 

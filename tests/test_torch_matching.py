@@ -195,3 +195,100 @@ def test_module_imports_without_nvcc():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "raised" in out.stdout
+
+
+@pytest.mark.parametrize("bad", ["negative ii", "jj == M"])
+def test_gather_rejects_pair_index_out_of_range(bad):
+    """An index outside [0, M) raises on the CPU path (the card queues the
+    same check without a host sync) and launches nothing."""
+    st = torch.zeros((3, 64, 128), dtype=torch.bfloat16)
+    mask = torch.ones((3, 64), dtype=torch.bool)
+    ii = torch.tensor([0, 1], dtype=torch.int32)
+    jj = torch.tensor([1, 2], dtype=torch.int32)
+    if bad == "negative ii":
+        ii = torch.tensor([0, -1], dtype=torch.int32)
+    else:
+        jj = torch.tensor([1, 3], dtype=torch.int32)
+    before = tm.knn2_gather.launches
+    with pytest.raises(IndexError):
+        tm.knn2_gather(st, mask, ii, jj)
+    assert tm.knn2_gather.launches == before
+
+
+def emulate_kernel_2a(sim, valid):
+    """A numpy model of the algorithm that knn2.cu folds with (it does not
+    run the kernel): 128-column tiles, as the kernel's kBN, a bias of -inf
+    on masked columns and on columns at or past N (the tile there reads the
+    next image); the lane q4 of a row sees columns 8 j + 2 q4 + e in
+    increasing order with second = max(second, min(best, v)), a strict
+    v > best for the index; each tile's top-2 folds into the running one,
+    then the four lanes merge."""
+    n1, n2 = sim.shape
+    lanes = []
+    for q4 in range(4):
+        best = np.full(n1, -np.inf, np.float32)
+        second = np.full(n1, -np.inf, np.float32)
+        idx = np.zeros(n1, np.int64)
+        for n0 in range(0, n2, 128):
+            tb = np.full(n1, -np.inf, np.float32)
+            ts = np.full(n1, -np.inf, np.float32)
+            ti = np.zeros(n1, np.int64)
+            for j in range(16):
+                for e in range(2):
+                    c = n0 + 8 * j + 2 * q4 + e
+                    ok = c < n2 and valid[c]
+                    # past N: the next image's rows, ruled out by the bias
+                    v = sim[:, c] if ok else np.full(n1, -np.inf, np.float32)
+                    ts = np.maximum(ts, np.minimum(tb, v))
+                    ti = np.where(v > tb, c, ti)
+                    tb = np.maximum(tb, v)
+            up = tb > best
+            second = np.where(up, np.maximum(best, ts),
+                              np.maximum(second, tb))
+            idx = np.where(up, ti, idx)
+            best = np.where(up, tb, best)
+        lanes.append((best, second, idx))
+    best, second, idx = lanes[0]
+    for ob, os_, oi in lanes[1:]:
+        take = (ob > best) | ((ob == best) & (oi < idx))
+        second = np.where(take, np.maximum(best, os_),
+                          np.maximum(second, ob))
+        idx = np.where(take, oi, idx)
+        best = np.where(take, ob, best)
+    return (np.maximum(2 - 2 * best, 0), np.maximum(2 - 2 * second, 0), idx)
+
+
+@pytest.mark.parametrize("case", ["ragged masked", "one column",
+                                  "all masked", "masked tile", "ties"])
+def test_kernel_2a_fold_equals_plain_version(case):
+    """The tile fold of kernel 2a's design, modelled in numpy on the same
+    f32 similarities, equals knn2_reference: idx, d1^2 and d2^2 exactly
+    (the kernel itself is held to its plain version on the card)."""
+    rng = np.random.default_rng(12)
+    n = 300
+    store = unit_rows(rng, 2, n)
+    mask = rng.uniform(size=(2, n)) > 0.2
+    if case == "one column":
+        mask[1] = False
+        mask[1, 131] = True
+    elif case == "all masked":
+        mask[1] = False
+    elif case == "masked tile":
+        mask[1, 128:256] = False
+    elif case == "ties":
+        mask[1] = True
+        store[1, 250] = store[1, 129] = store[1, 3]
+        store[0, :5] = store[1, 3]
+    st = torch.tensor(store).to(torch.bfloat16)
+    ii = torch.tensor([0], dtype=torch.int32)
+    want = [t[0].numpy() for t in
+            tm.knn2_reference(st, torch.tensor(mask), ii, ii + 1)]
+    q = st.float()
+    # the reference's own product shape, so both see the same f32 sums
+    sim = torch.matmul(q[:1], q[1:].transpose(1, 2))[0].numpy()
+    got = emulate_kernel_2a(sim, mask[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    if case == "ties":
+        assert np.all(got[2][:5] == 3) and np.all(got[0][:5] == got[1][:5])
