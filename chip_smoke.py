@@ -24,7 +24,12 @@ and the script exits non-zero:
      sgm_total_wta (2f), sgm_total (2g) and wta (2h) at 768x1024 / D=128
      and at a ragged 37x61 / D=48, exact on every output (2h also on the
      skewed right volume, an int32 and a float32 volume) and within 1e-5
-     on the disparity after the torch tail; the bare products (bf16 torch.matmul, torch._int_mm) are timed as
+     on the disparity after the torch tail; 2d and 2e also at P2 = 120,
+     191, 200 (uint8 and int16 scratch) and 4031 (P1 40000), with 4 and
+     8 paths, on D % 4 != 0, one row, one column, one pixel, W < 32,
+     D = 4, 160 and 256, a misaligned cost volume, 2e on an hsum of any
+     sign, and 2f / 2g on 2e's own output; the
+     bare products (bf16 torch.matmul, torch._int_mm) are timed as
      yardsticks only;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
      scene with 4096 keypoints per image, with the knn2 launch count reset
@@ -56,6 +61,8 @@ and the script exits non-zero:
      over the paths), the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
 of each end-to-end path (the aerial one device activity only, no trace).
+A failed build raises with its nvcc log; to keep a whole run's record,
+redirect it: `python3 -X faulthandler chip_smoke.py > smoke.log 2>&1`.
 The last line of standard output is the result:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
@@ -550,6 +557,84 @@ def _check_equal(label, pairs):
                                  f"{b.dtype})")
 
 
+def sgm_2d2e_cases():
+    """2d and 2e (and 2f / 2g on 2e's own output) bit-equal to their plain
+    versions beyond the default penalties: P2 = 120, 191 (uint8 scratch
+    up to its top, 255), 200 (int16 scratch) and 4031 with P1 = 40000 (the
+    largest P2 the wrappers take, P1 above it), 4 and 8 paths, on D % 4
+    != 0, degenerate chains (one row, one column, one pixel, W < 32:
+    diagonals of length 1 that leave at both edges), the narrowest and
+    widest lanes (D = 4: 2 disparities a lane; D = 160, 256: 8), a
+    cost volume at an odd address (the scalar loads) and 2e on an hsum of
+    any sign (int16 wrap per disparity).  Half the pixels
+    cost 64 but at d = 0, so single path values climb to 64 + P2."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import sgm_kernel as sk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    shapes = ((37, 61, 48), (37, 61, 37), (1, 61, 48), (37, 1, 48),
+              (1, 1, 48), (37, 20, 48), (45, 29, 4), (23, 31, 160),
+              (17, 19, 256))
+    n = 0
+    top = {}
+    for H, W, D in shapes:
+        c = rng.integers(0, 65, (H, W, D))
+        band = rng.uniform(size=(H, W)) < 0.5
+        c[band] = 64
+        c[band, 0] = 0
+        cost = torch.tensor(c.astype(np.uint8), device=dev)
+        if (H, W, D) == shapes[0]:
+            # the same data at an odd address: the scalar specialization
+            buf = torch.empty(cost.numel() + 1, dtype=torch.uint8, device=dev)
+            odd = buf[1:].view(H, W, D)
+            odd.copy_(cost)
+        for p1, p2 in ((10, 120), (10, 191), (10, 200), (40000, 4031)):
+            label = f"2d/2e {H}x{W}x{D} P1={p1} P2={p2}"
+            h_p = sk.horizontal_reference(cost, p1, p2)
+            _check_equal(label, [("2d", sk.sgm_horizontal(cost, p1, p2),
+                                  h_p)])
+            top[p2] = max(top.get(p2, 0), int(sk._scan(
+                cost, False, (0,), p1, p2).max()))
+            for paths in (4, 8):
+                part_p = sk.partial_reference(cost, h_p, p1, p2, paths)
+                part_k = sk.sgm_partial(cost, h_p, p1, p2, paths)
+                tot_p = sk.total_reference(cost, part_p, p1, p2, paths)
+                wl, wr = sk.wta_maps_reference(tot_p)
+                _check_equal(f"{label} {paths} paths", _map_pairs(
+                    "2e", part_k, part_p) + _map_pairs(
+                    "2g on 2e's output", sk.sgm_total(cost, part_k, p1, p2,
+                                                      paths), tot_p)
+                    + _map_pairs("2f on 2e's output", sk.sgm_total_wta(
+                        cost, part_k, p1, p2, paths), (wl, wr)))
+                n += 1
+            if (H, W, D) == shapes[0]:
+                part_p = sk.partial_reference(cost, h_p, p1, p2)
+                _check_equal(f"{label} misaligned cost", [
+                    ("2d", sk.sgm_horizontal(odd, p1, p2), h_p),
+                    ("2e", sk.sgm_partial(odd, h_p, p1, p2), part_p)])
+                # an hsum of any sign, up to the int16 ends: each int16
+                # half wraps on its own, as the int32 add cast to int16
+                hs = torch.randint(-32768, 32768, (H, W, D), device=dev,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(p2),
+                                   dtype=torch.int32).to(torch.int16)
+                for paths in (4, 8):
+                    _check_equal(f"{label} {paths} paths signed hsum", [
+                        ("2e", sk.sgm_partial(cost, hs, p1, p2, paths),
+                         sk.partial_reference(cost, hs, p1, p2, paths))])
+        torch.cuda.synchronize()
+    dims = ", ".join("x".join(map(str, s)) for s in shapes)
+    print(f"  sgm 2d/2e: {n} cases equal to plain (P1/P2 10/120, 10/191, "
+          f"10/200, 40000/4031; 4 and 8 paths, shapes {dims}; "
+          f"2f and 2g on 2e's output; a misaligned cost volume; 2e on a "
+          f"signed hsum); largest "
+          f"single-path value on the down path: {top} (64 + P2 is the "
+          f"bound)", flush=True)
+    return n
+
+
 def compare_sgm(H, W, D, seed, label, time_it):
     """Kernels 2c-2h against their plain versions on the card, each fed the
     same inputs; every output must be equal (2h also on an int32 and a
@@ -612,7 +697,12 @@ def compare_sgm(H, W, D, seed, label, time_it):
         torch.cuda.synchronize()
         _check_equal(label, _map_pairs(name, got, want))
         nbytes, ops = io[name]
-        out[name] = [0.0, None, None, bound(ops, PEAK_INT32, nbytes)]
+        b = bound(ops, PEAK_INT32, nbytes)
+        if name in ("sgm_horizontal", "sgm_partial"):
+            # these step two disparities per DPX 16x2 instruction: at that
+            # rate the operation term halves (kept beside the int32 bound)
+            b["pair_bound_ms"] = max(b["ops_ms"] / 2, b["bytes_ms"])
+        out[name] = [0.0, None, None, b]
     # 2h on the other volumes it takes: the skewed right volume of the
     # volume path (30000 fills), int32 and float32 volumes with ties
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -644,6 +734,20 @@ def compare_sgm(H, W, D, seed, label, time_it):
           f"disparity max err {derr:.3g}, valid "
           f"{float(v_k.float().mean()):.4f}", flush=True)
     if time_it:
+        # 2d and 2e with int16 scratch (P2 = 200), equal and timed
+        h200 = sk.horizontal_reference(cost_p, 10, 200)
+        extra = {"sgm_horizontal": (lambda: sk.sgm_horizontal(cost_p, 10,
+                                                              200), h200),
+                 "sgm_partial": (lambda: sk.sgm_partial(cost_p, h200, 10,
+                                                        200),
+                                 sk.partial_reference(cost_p, h200, 10,
+                                                      200))}
+        for name, (kern, want) in extra.items():
+            _check_equal(f"{label} P2=200", [(name, kern(), want)])
+            out[name].append(min(cuda_time_ms(kern), cuda_time_ms(kern)))
+            print(f"  {name} {H}x{W}x{D} P2=200 (int16 scratch): kernel "
+                  f"{out[name][4]:.3f} ms, equal to plain", flush=True)
+        del h200, extra
         for name, (kern, plain, _) in calls.items():
             # plain versions are Python loops of small launches (~0.1-1 s a
             # call at this shape): 3 repetitions after 1 warm-up
@@ -652,26 +756,89 @@ def compare_sgm(H, W, D, seed, label, time_it):
             k2 = cuda_time_ms(kern)
             p2 = cuda_time_ms(plain, reps=3, warmup=1)
             out[name][1:3] = [min(k1, k2), min(p1, p2)]
+            b = out[name][3]
+            share = f"{100 * b['bound_ms'] / out[name][1]:.1f} % of bound"
+            if "pair_bound_ms" in b:
+                share += (f", {100 * b['pair_bound_ms'] / out[name][1]:.1f} % "
+                          f"of the pair-rate bound {b['pair_bound_ms']:.4f} ms")
             print(f"  {name} {H}x{W}x{D}: kernel {k1:.3f}/{k2:.3f} ms, "
-                  f"plain {p1:.3f}/{p2:.3f} ms, {bound_text(out[name][3])}",
+                  f"plain {p1:.3f}/{p2:.3f} ms, {bound_text(b)}, {share}",
                   flush=True)
     return out
 
 
+def ptxas_registers(log):
+    """{entry function: (registers, spill bytes)} from an nvcc -Xptxas -v
+    build log."""
+    import re
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+    return out
+
+
+SGM_FUNCTIONS = (   # label, pattern of the mangled name
+    ("2d chain_kernel (K 4, ring 32, vector: D = 128)",
+     r"chain_kernelILi4ELi32ELb1E"),
+    ("2e chain_kernel (K 4, ring 8, vector: D = 128)",
+     r"chain_kernelILi4ELi8ELb1E"),
+    ("2d/2e chain_kernel (K 2, scalar: D = 37)",
+     r"chain_kernelILi2ELi\d+ELb0E"),
+    ("2d/2e chain_kernel (K 8, ring 16 / 4, vector: D = 256)",
+     r"chain_kernelILi8ELi\d+ELb1E"),
+    ("2f/2g path_kernel (K 4)", r"path_kernelILi4EE"),
+)
+
+
+def sgm_registers():
+    """Print the registers and spills of the SGM path kernels' builds
+    (when this process built them: a library found already built has no
+    build log)."""
+    import re
+    from metricsfm_tpu_torch.ops import cuda_build
+    log = cuda_build.build_info["sgm_aggregate"]["log"]
+    if not log:
+        print("  registers: sgm_aggregate was already built, no build log",
+              flush=True)
+        return
+    regs = ptxas_registers(log)
+    for label, key in SGM_FUNCTIONS:
+        hits = [v for k, v in regs.items() if re.search(key, k)]
+        if not hits:
+            raise AssertionError(f"no ptxas line for {label}")
+        print(f"  registers {label}: {min(r for r, _ in hits)}-"
+              f"{max(r for r, _ in hits)} a thread over {len(hits)} "
+              f"instantiations, spill bytes {sum(s for _, s in hits)}",
+              flush=True)
+
+
 def sgm_phase():
     """Phase 3 for kernels 2c-2h; returns their table rows (no launches)."""
+    sgm_registers()
     ragged = compare_sgm(37, 61, 48, seed=1, label="ragged 37x61x48",
                          time_it=False)
+    sgm_2d2e_cases()
     full = compare_sgm(768, 1024, 128, seed=0, label="768x1024x128",
                        time_it=True)
     rows = []
     for name, _, src, replaces in SGM_ROWS:
         err = max(full[name][0], ragged[name][0])
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"metricsfm_tpu_torch/ops/csrc/{src}",
-                     "replaces": replaces, "max_abs_err": err,
-                     "ms": full[name][1], "plain_ms": full[name][2],
-                     **full[name][3], "library_ms": None})
+        row = {"name": name, "route": "cuda",
+               "source": f"metricsfm_tpu_torch/ops/csrc/{src}",
+               "replaces": replaces, "max_abs_err": err,
+               "ms": full[name][1], "plain_ms": full[name][2],
+               **full[name][3], "library_ms": None}
+        if len(full[name]) > 4:
+            row["int16_scratch_ms"] = full[name][4]
+        rows.append(row)
     return rows
 
 

@@ -157,6 +157,11 @@ class MatchGraphBuilder:
                     out[(i, j)] = PairMatches(kp_i=a, kp_j=b)
                 continue
             todo.append((i, j))
+        # group the pairs by first image (a stable sort: sorted candidate
+        # lists keep their order and batches), so that an image's shard is
+        # written as soon as its last pair is verified, whatever the order
+        # the caller passed the pairs in
+        todo.sort(key=lambda p: p[0])
         pending: Dict[int, int] = {}
         for (i, _) in todo:
             pending[i] = pending.get(i, 0) + 1

@@ -23,10 +23,13 @@ version; any other device raises.  Each wrapper counts its launches in
 Layouts hold the semantics, not the TPU's padding: the cost volume is
 (H, W, D) uint8 (Hamming costs <= 64), aggregated volumes are (H, W, D)
 int16 (a path value is <= 64 + P2 and the 8-path sum <= 8 * 184 = 1,472),
-and the WTA maps are (H, W) int32.  All values are integers, so kernel and
-plain version agree exactly whatever the order of the sums.  2h also takes
-int32 and float32 volumes (float32 maps but an int32 `best`); a float
-minimum is exact too, so there as well the two agree exactly.  Semantics:
+and the WTA maps are (H, W) int32.  On the card 2d and 2e pass single
+path values between their launches in scratch volumes of
+`scratch_dtype(P2)`: uint8 while 64 + P2 <= 255, int16 above.  All values
+are integers, so kernel and plain version agree exactly whatever the
+order of the sums.  2h also takes int32 and float32 volumes (float32 maps
+but an int32 `best`); a float minimum is exact too, so there as well the
+two agree exactly.  Semantics:
 
   * census: 9x7 window, bit = centre > neighbour, zero-padded context,
     bits in dy-outer / dx-inner order with the centre skipped, bits 0-31
@@ -267,8 +270,9 @@ def _device_of(*ts):
 
 def _launch(lib_name, fn_name, dev, ptrs, scalars):
     """Call a C entry `fn(ptrs..., scalars..., stream)` of
-    csrc/<lib_name>.cu on the current stream (a Python float passes as a C
-    float, anything else as an int); raise if it returns a CUDA error."""
+    csrc/<lib_name>.cu on the current stream (a tensor passes as its
+    pointer, None as a null pointer; a Python float as a C float, anything
+    else as an int); raise if it returns a CUDA error."""
     fn = getattr(cuda_build.load_library(lib_name), fn_name)
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
         [ctypes.c_float if isinstance(v, float) else ctypes.c_int
@@ -276,7 +280,8 @@ def _launch(lib_name, fn_name, dev, ptrs, scalars):
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), *scalars, stream)
+        rc = fn(*(None if t is None else t.data_ptr() for t in ptrs),
+                *scalars, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError {rc}")
 
@@ -307,17 +312,31 @@ def census_cost(left, right, max_disp: int):
 census_cost.launches = 0
 
 
+def scratch_dtype(p2: int):
+    """The type of the single-path scratch volumes of kernels 2d and 2e: a
+    single path value is <= 64 + P2, so uint8 where that is <= 255, int16
+    above."""
+    if p2 < 0:
+        raise ValueError(f"P2 must be >= 0, got {p2}")
+    return torch.uint8 if 64 + p2 <= 255 else torch.int16
+
+
 def sgm_horizontal(cost, p1: int = 10, p2: int = 120):
-    """Kernel 2d: left->right + right->left path sum, (H, W, D) int16."""
+    """Kernel 2d: left->right + right->left path sum, (H, W, D) int16.  On
+    the card the left->right path goes through a single-path scratch
+    volume (`scratch_dtype(p2)`), freed before the call returns."""
     _check_volume("cost", cost, torch.uint8)
     _check_penalties(p1, p2, 8)
     dev = _device_of(cost)
     if dev.type == "cpu":
         return horizontal_reference(cost, p1, p2)
     H, W, D = cost.shape
+    st = scratch_dtype(p2)
+    scratch = torch.empty((H, W, D), dtype=st, device=dev)
     out = torch.empty((H, W, D), dtype=torch.int16, device=dev)
-    _launch("sgm_aggregate", "sgm_horizontal_launch", dev, (cost, out),
-            (H, W, D, p1, p2))
+    _launch("sgm_aggregate", "sgm_horizontal_launch", dev,
+            (cost, scratch, out),
+            (H, W, D, p1, p2, int(st == torch.int16)))
     sgm_horizontal.launches += 1
     return out
 
@@ -327,7 +346,10 @@ sgm_horizontal.launches = 0
 
 def sgm_partial(cost, hsum, p1: int = 10, p2: int = 120,
                 num_paths: int = 8):
-    """Kernel 2e: hsum + down (+ both down diagonals), (H, W, D) int16."""
+    """Kernel 2e: hsum + down (+ both down diagonals), (H, W, D) int16.
+    On the card with 8 paths the two diagonals go through two single-path
+    scratch volumes (`scratch_dtype(p2)`), freed before the call
+    returns."""
     _check_volume("cost", cost, torch.uint8)
     _check_volume("hsum", hsum, torch.int16, cost.shape)
     _check_penalties(p1, p2, num_paths)
@@ -335,9 +357,15 @@ def sgm_partial(cost, hsum, p1: int = 10, p2: int = 120,
     if dev.type == "cpu":
         return partial_reference(cost, hsum, p1, p2, num_paths)
     H, W, D = cost.shape
+    diag = num_paths >= 8
+    st = scratch_dtype(p2)
+    dr = dl = None
+    if diag:
+        dr, dl = torch.empty((2, H, W, D), dtype=st, device=dev)
     out = torch.empty((H, W, D), dtype=torch.int16, device=dev)
-    _launch("sgm_aggregate", "sgm_partial_launch", dev, (cost, hsum, out),
-            (H, W, D, p1, p2, int(num_paths >= 8)))
+    _launch("sgm_aggregate", "sgm_partial_launch", dev,
+            (cost, hsum, dr, dl, out),
+            (H, W, D, p1, p2, int(diag), int(st == torch.int16)))
     sgm_partial.launches += 1
     return out
 

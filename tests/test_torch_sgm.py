@@ -99,14 +99,15 @@ def test_aggregate_paths_matches_jax_and_bruteforce(rng, num_paths):
     np.testing.assert_array_equal(got.numpy(), jax_agg)
 
 
+@pytest.mark.parametrize("p1,p2", [(7, 90), (10, 200)])
 @pytest.mark.parametrize("num_paths", [4, 8])
-def test_stage_sums_match_bruteforce(rng, num_paths):
+def test_stage_sums_match_bruteforce(rng, num_paths, p1, p2):
     """2d = the two horizontal paths, 2e = 2d + the down paths, and the
     total inside 2f = 2e + the up paths, each with P1/P2 other than the
-    defaults and a ragged D."""
+    defaults and a ragged D; P2 = 200 is where the kernels' single-path
+    scratch volumes are int16.  Tolerance 0: integers."""
     cost = rng.integers(0, 65, size=(9, 11, 7))
     c = torch.tensor(cost.astype(np.uint8))
-    p1, p2 = 7, 90
     h = sgm_kernel.sgm_horizontal(c, p1, p2)
     np.testing.assert_array_equal(
         h.numpy(), _paths_bruteforce(cost, HORIZONTAL, p1, p2))
@@ -118,6 +119,36 @@ def test_stage_sums_match_bruteforce(rng, num_paths):
     np.testing.assert_array_equal(
         tot.numpy(), _paths_bruteforce(
             cost, HORIZONTAL + DOWN[num_paths] + UP[num_paths], p1, p2))
+
+
+@pytest.mark.parametrize("p2", [0, 90, 120, 191, 192, 200, 4031])
+def test_scratch_dtype_holds_every_single_path_value(p2):
+    """The rule that picks the kernels' scratch type gives uint8 exactly
+    when 64 + P2 <= 255, and the plain recurrence never goes above 64 + P2
+    on adversarial costs (runs of 0 and 64 along the path, so that one
+    disparity leads by P2 and the rest pay 64 on top of it); it reaches
+    the bound, so the rule has no slack.  Tolerance 0."""
+    st = sgm_kernel.scratch_dtype(p2)
+    assert st == (torch.uint8 if 64 + p2 <= 255 else torch.int16)
+    rng = np.random.default_rng(p2)
+    N, D = 72, 16
+    cost = np.full((N, N, D), 64, np.int64)
+    cost[:66, :, 0] = 0            # 66 steps with one free disparity
+    for n0 in range(66, N, 2):     # then runs of 2 steps
+        for m in range(N):
+            if rng.uniform() < 0.7:    # one free disparity
+                cost[n0:n0 + 2, m, rng.integers(D)] = 0
+            if rng.uniform() < 0.3:    # all zero
+                cost[n0:n0 + 2, m] = 0
+    c = torch.tensor(cost.astype(np.uint8))
+    # P1 >= P2: a neighbour's +P1 cannot undercut m + P2, so the value at
+    # a disparity far from the free one climbs by 64 a step to 64 + P2
+    p1 = max(10, p2)
+    for reverse, shift in ((False, 0), (True, 0), (False, 1), (True, -1)):
+        L = sgm_kernel._scan(c, reverse, (shift,), p1, p2)
+        assert int(L.max()) == 64 + p2
+        assert int(L.min()) >= 0
+        assert torch.equal(L.to(st).to(torch.int32), L)
 
 
 def _wta_vs_pallas(jl, jr, tl, tr):
@@ -273,6 +304,10 @@ def test_wrappers_check_arguments():
         sgm_kernel.sgm_total_wta(c, torch.zeros((4, 5, 8),
                                                 dtype=torch.int16),
                                  num_paths=6)
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_horizontal(c, 10, 4032)      # 8 x (64 + P2) > int16
+    with pytest.raises(ValueError):
+        sgm_kernel.scratch_dtype(-1)
     with pytest.raises(TypeError):
         sgm_kernel.census_cost(torch.zeros(4, 5, dtype=torch.float64),
                                torch.zeros(4, 5, dtype=torch.float64), 8)
