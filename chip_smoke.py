@@ -24,11 +24,11 @@ and the script exits non-zero:
      sgm_total_wta (2f), sgm_total (2g) and wta (2h) at 768x1024 / D=128
      and at a ragged 37x61 / D=48, exact on every output (2h also on the
      skewed right volume, an int32 and a float32 volume) and within 1e-5
-     on the disparity after the torch tail; 2d and 2e also at P2 = 120,
+     on the disparity after the torch tail; 2d-2g also at P2 = 120,
      191, 200 (uint8 and int16 scratch) and 4031 (P1 40000), with 4 and
      8 paths, on D % 4 != 0, one row, one column, one pixel, W < 32,
-     D = 4, 160 and 256, a misaligned cost volume, 2e on an hsum of any
-     sign, and 2f / 2g on 2e's own output; the
+     W < D, D = 4, 160 and 256, a misaligned cost volume, 2e on an hsum
+     and 2f / 2g on a partial of any sign, and timed at P2 = 200; the
      bare products (bf16 torch.matmul, torch._int_mm) are timed as
      yardsticks only;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
@@ -557,17 +557,19 @@ def _check_equal(label, pairs):
                                  f"{b.dtype})")
 
 
-def sgm_2d2e_cases():
-    """2d and 2e (and 2f / 2g on 2e's own output) bit-equal to their plain
-    versions beyond the default penalties: P2 = 120, 191 (uint8 scratch
-    up to its top, 255), 200 (int16 scratch) and 4031 with P1 = 40000 (the
-    largest P2 the wrappers take, P1 above it), 4 and 8 paths, on D % 4
-    != 0, degenerate chains (one row, one column, one pixel, W < 32:
-    diagonals of length 1 that leave at both edges), the narrowest and
-    widest lanes (D = 4: 2 disparities a lane; D = 160, 256: 8), a
-    cost volume at an odd address (the scalar loads) and 2e on an hsum of
-    any sign (int16 wrap per disparity).  Half the pixels
-    cost 64 but at d = 0, so single path values climb to 64 + P2."""
+def sgm_2d2g_cases():
+    """2d-2g bit-equal to their plain versions beyond the default
+    penalties: P2 = 120, 191 (uint8 scratch up to its top, 255), 200
+    (int16 scratch) and 4031 with P1 = 40000 (the largest P2 the wrappers
+    take, P1 above it), 4 and 8 paths, on D % 4 != 0, degenerate chains
+    (one row, one column, one pixel, W < 32: diagonals of length 1 that
+    leave at both edges; W < D: the right maps mostly out of range), the
+    narrowest and widest lanes (D = 4: 2 disparities a lane; D = 160, 256:
+    8, and 2f's largest shared-memory tile), a cost volume at an odd
+    address (the scalar loads), 2e on an hsum and 2f / 2g on a partial of
+    any sign (int16 wrap per disparity).  2f and 2g take the plain
+    partial sum, their own input.  Half the pixels cost 64 but at d = 0,
+    so single path values climb to 64 + P2."""
     import numpy as np
     import torch
     from metricsfm_tpu_torch.ops import sgm_kernel as sk
@@ -579,6 +581,14 @@ def sgm_2d2e_cases():
               (17, 19, 256))
     n = 0
     top = {}
+
+    def up_pairs(label, cost, part, p1, p2, paths):
+        tot = sk.total_reference(cost, part, p1, p2, paths)
+        return _map_pairs(f"2g {label}", sk.sgm_total(
+            cost, part, p1, p2, paths), tot) + _map_pairs(
+            f"2f {label}", sk.sgm_total_wta(cost, part, p1, p2, paths),
+            sk.wta_maps_reference(tot))
+
     for H, W, D in shapes:
         c = rng.integers(0, 65, (H, W, D))
         band = rng.uniform(size=(H, W)) < 0.5
@@ -591,47 +601,47 @@ def sgm_2d2e_cases():
             odd = buf[1:].view(H, W, D)
             odd.copy_(cost)
         for p1, p2 in ((10, 120), (10, 191), (10, 200), (40000, 4031)):
-            label = f"2d/2e {H}x{W}x{D} P1={p1} P2={p2}"
+            label = f"2d-2g {H}x{W}x{D} P1={p1} P2={p2}"
             h_p = sk.horizontal_reference(cost, p1, p2)
             _check_equal(label, [("2d", sk.sgm_horizontal(cost, p1, p2),
                                   h_p)])
             top[p2] = max(top.get(p2, 0), int(sk._scan(
                 cost, False, (0,), p1, p2).max()))
+            # a partial of any sign, up to the int16 ends: each int16 half
+            # wraps on its own, as the int32 add cast to int16 does
+            signed = torch.randint(-32768, 32768, (H, W, D), device=dev,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(p2),
+                                   dtype=torch.int32).to(torch.int16)
             for paths in (4, 8):
                 part_p = sk.partial_reference(cost, h_p, p1, p2, paths)
-                part_k = sk.sgm_partial(cost, h_p, p1, p2, paths)
-                tot_p = sk.total_reference(cost, part_p, p1, p2, paths)
-                wl, wr = sk.wta_maps_reference(tot_p)
-                _check_equal(f"{label} {paths} paths", _map_pairs(
-                    "2e", part_k, part_p) + _map_pairs(
-                    "2g on 2e's output", sk.sgm_total(cost, part_k, p1, p2,
-                                                      paths), tot_p)
-                    + _map_pairs("2f on 2e's output", sk.sgm_total_wta(
-                        cost, part_k, p1, p2, paths), (wl, wr)))
+                _check_equal(
+                    f"{label} {paths} paths",
+                    _map_pairs("2e", sk.sgm_partial(cost, h_p, p1, p2,
+                                                    paths), part_p)
+                    + up_pairs("", cost, part_p, p1, p2, paths)
+                    + up_pairs("signed partial", cost, signed, p1, p2,
+                               paths))
                 n += 1
             if (H, W, D) == shapes[0]:
                 part_p = sk.partial_reference(cost, h_p, p1, p2)
                 _check_equal(f"{label} misaligned cost", [
                     ("2d", sk.sgm_horizontal(odd, p1, p2), h_p),
-                    ("2e", sk.sgm_partial(odd, h_p, p1, p2), part_p)])
-                # an hsum of any sign, up to the int16 ends: each int16
-                # half wraps on its own, as the int32 add cast to int16
-                hs = torch.randint(-32768, 32768, (H, W, D), device=dev,
-                                   generator=torch.Generator(
-                                       device=dev).manual_seed(p2),
-                                   dtype=torch.int32).to(torch.int16)
+                    ("2e", sk.sgm_partial(odd, h_p, p1, p2), part_p)]
+                    + up_pairs("misaligned cost", odd, part_p, p1, p2, 8))
+                # an hsum of any sign
                 for paths in (4, 8):
                     _check_equal(f"{label} {paths} paths signed hsum", [
-                        ("2e", sk.sgm_partial(cost, hs, p1, p2, paths),
-                         sk.partial_reference(cost, hs, p1, p2, paths))])
+                        ("2e", sk.sgm_partial(cost, signed, p1, p2, paths),
+                         sk.partial_reference(cost, signed, p1, p2,
+                                              paths))])
         torch.cuda.synchronize()
     dims = ", ".join("x".join(map(str, s)) for s in shapes)
-    print(f"  sgm 2d/2e: {n} cases equal to plain (P1/P2 10/120, 10/191, "
-          f"10/200, 40000/4031; 4 and 8 paths, shapes {dims}; "
-          f"2f and 2g on 2e's output; a misaligned cost volume; 2e on a "
-          f"signed hsum); largest "
-          f"single-path value on the down path: {top} (64 + P2 is the "
-          f"bound)", flush=True)
+    print(f"  sgm 2d-2g: {n} cases equal to plain (P1/P2 10/120, 10/191, "
+          f"10/200, 40000/4031; 4 and 8 paths, shapes {dims}; 2f and 2g "
+          f"on the plain partial and on a signed partial; a misaligned "
+          f"cost volume; 2e on a signed hsum); largest single-path value "
+          f"on the down path: {top} (64 + P2 is the bound)", flush=True)
     return n
 
 
@@ -682,26 +692,30 @@ def compare_sgm(H, W, D, seed, label, time_it):
 
     def maps(m):
         return nbytes_of(*(t for _, t, _ in _map_pairs("", m, m)))
-    io = {   # name: (input and output bytes, integer ops)
-        "census_cost": (nbytes_of(L, R, cost_p), 252 * H * W + 5 * vol),
-        "sgm_horizontal": (nbytes_of(cost_p, h_p), 17 * vol),
-        "sgm_partial": (nbytes_of(cost_p, h_p, part_p), 27 * vol),
+    io = {   # name: (input and output bytes, integer ops, of which path
+        #        steps, which run two disparities per DPX 16x2 instruction)
+        "census_cost": (nbytes_of(L, R, cost_p), 252 * H * W + 5 * vol, 0),
+        "sgm_horizontal": (nbytes_of(cost_p, h_p), 17 * vol, 17 * vol),
+        "sgm_partial": (nbytes_of(cost_p, h_p, part_p), 27 * vol, 27 * vol),
         "sgm_total_wta": (nbytes_of(cost_p, part_p) + maps((wl_p, wr_p)),
-                          36 * vol),
-        "sgm_total": (nbytes_of(cost_p, part_p, total_p), 27 * vol),
-        "wta": (nbytes_of(total_p) + maps(wta_p), 6 * vol),
+                          36 * vol, 27 * vol),
+        "sgm_total": (nbytes_of(cost_p, part_p, total_p), 27 * vol,
+                      27 * vol),
+        "wta": (nbytes_of(total_p) + maps(wta_p), 6 * vol, 0),
     }
     out = {}
     for name, (kern, plain, want) in calls.items():
         got = kern()
         torch.cuda.synchronize()
         _check_equal(label, _map_pairs(name, got, want))
-        nbytes, ops = io[name]
+        nbytes, ops, pair_ops = io[name]
         b = bound(ops, PEAK_INT32, nbytes)
-        if name in ("sgm_horizontal", "sgm_partial"):
-            # these step two disparities per DPX 16x2 instruction: at that
-            # rate the operation term halves (kept beside the int32 bound)
-            b["pair_bound_ms"] = max(b["ops_ms"] / 2, b["bytes_ms"])
+        if pair_ops:
+            # the path steps run two disparities per DPX 16x2 instruction:
+            # at that rate their operation term halves (2f's WTA does not);
+            # kept beside the int32 bound
+            b["pair_bound_ms"] = max(
+                b["ops_ms"] * (ops - pair_ops / 2) / ops, b["bytes_ms"])
         out[name] = [0.0, None, None, b]
     # 2h on the other volumes it takes: the skewed right volume of the
     # volume path (30000 fills), int32 and float32 volumes with ties
@@ -734,20 +748,25 @@ def compare_sgm(H, W, D, seed, label, time_it):
           f"disparity max err {derr:.3g}, valid "
           f"{float(v_k.float().mean()):.4f}", flush=True)
     if time_it:
-        # 2d and 2e with int16 scratch (P2 = 200), equal and timed
+        # 2d-2g with int16 scratch (P2 = 200), equal and timed
         h200 = sk.horizontal_reference(cost_p, 10, 200)
+        part200 = sk.partial_reference(cost_p, h200, 10, 200)
+        tot200 = sk.total_reference(cost_p, part200, 10, 200)
         extra = {"sgm_horizontal": (lambda: sk.sgm_horizontal(cost_p, 10,
                                                               200), h200),
                  "sgm_partial": (lambda: sk.sgm_partial(cost_p, h200, 10,
-                                                        200),
-                                 sk.partial_reference(cost_p, h200, 10,
-                                                      200))}
+                                                        200), part200),
+                 "sgm_total_wta": (lambda: sk.sgm_total_wta(
+                     cost_p, part200, 10, 200), sk.wta_maps_reference(
+                         tot200)),
+                 "sgm_total": (lambda: sk.sgm_total(cost_p, part200, 10,
+                                                    200), tot200)}
         for name, (kern, want) in extra.items():
-            _check_equal(f"{label} P2=200", [(name, kern(), want)])
+            _check_equal(f"{label} P2=200", _map_pairs(name, kern(), want))
             out[name].append(min(cuda_time_ms(kern), cuda_time_ms(kern)))
             print(f"  {name} {H}x{W}x{D} P2=200 (int16 scratch): kernel "
                   f"{out[name][4]:.3f} ms, equal to plain", flush=True)
-        del h200, extra
+        del h200, part200, tot200, extra
         for name, (kern, plain, _) in calls.items():
             # plain versions are Python loops of small launches (~0.1-1 s a
             # call at this shape): 3 repetitions after 1 warm-up
@@ -788,22 +807,35 @@ def ptxas_registers(log):
 SGM_FUNCTIONS = (   # label, pattern of the mangled name
     ("2d chain_kernel (K 4, ring 32, vector: D = 128)",
      r"chain_kernelILi4ELi32ELb1E"),
-    ("2e chain_kernel (K 4, ring 8, vector: D = 128)",
+    ("2e/2f/2g chain_kernel (K 4, ring 8, vector: D = 128)",
      r"chain_kernelILi4ELi8ELb1E"),
-    ("2d/2e chain_kernel (K 2, scalar: D = 37)",
+    ("2d-2g chain_kernel (K 2, scalar: D = 37)",
      r"chain_kernelILi2ELi\d+ELb0E"),
-    ("2d/2e chain_kernel (K 8, ring 16 / 4, vector: D = 256)",
+    ("2d-2g chain_kernel (K 8, ring 16 / 4, vector: D = 256)",
      r"chain_kernelILi8ELi\d+ELb1E"),
-    ("2f/2g path_kernel (K 4)", r"path_kernelILi4EE"),
+    ("2f wta_tile_kernel (2 words a lane, vector: D = 128)",
+     r"wta_tile_kernelILi2ELb1E"),
+    ("2f wta_tile_kernel (D = 37 .. 256)", r"wta_tile_kernelILi\dELb\dE"),
 )
 
 
 def sgm_registers():
     """Print the registers and spills of the SGM path kernels' builds
     (when this process built them: a library found already built has no
-    build log)."""
+    build log), and the shared memory of 2f's WTA tiles."""
+    import ctypes
     import re
     from metricsfm_tpu_torch.ops import cuda_build
+    fn = cuda_build.load_library("sgm_aggregate").sgm_total_wta_tile
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    tiles = []
+    for D in (4, 37, 48, 128, 160, 256):
+        nbytes = ctypes.c_int()
+        tiles.append(f"D {D}: {fn(D, ctypes.byref(nbytes))} pixels, "
+                     f"{nbytes.value} B")
+    print(f"  2f wta_tile_kernel dynamic shared memory a block: "
+          f"{'; '.join(tiles)}", flush=True)
     log = cuda_build.build_info["sgm_aggregate"]["log"]
     if not log:
         print("  registers: sgm_aggregate was already built, no build log",
@@ -825,7 +857,7 @@ def sgm_phase():
     sgm_registers()
     ragged = compare_sgm(37, 61, 48, seed=1, label="ragged 37x61x48",
                          time_it=False)
-    sgm_2d2e_cases()
+    sgm_2d2g_cases()
     full = compare_sgm(768, 1024, 128, seed=0, label="768x1024x128",
                        time_it=True)
     rows = []
@@ -1252,6 +1284,18 @@ def profile_aerial():
         print(f"    {t / 1e3:9.3f} ms  x{n:<7} {name[:90]}", flush=True)
 
 
+def kernel_label(name):
+    """A device kernel's name and template arguments, without its return
+    type, namespace and parameters."""
+    import re
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+    return m.group(1) if m else name
+
+
+SGM_DEVICE_NAMES = ("census_kernel", "cost_kernel", "chain_kernel", "wta_tile_kernel",
+                    "wta_maps_kernel")
+
+
 def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
     """Two more runs of each end-to-end path under torch.profiler, the
     second counted: device busy share (sum of device-op time over wall
@@ -1327,6 +1371,18 @@ def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
         for name, (t, n) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:12]:
             print(f"    {t / 1e3:9.3f} ms  x{n:<6} {name[:90]}", flush=True)
+        if label.startswith("dense") and label != "dense_elas":
+            # the SGM kernels launch by launch, in stream order (a
+            # chain_kernel instantiation serves several stages)
+            sgm_events = sorted(
+                (e for e in events if e.device_type == DeviceType.CUDA
+                 and span.start <= e.time_range.start <= span.end
+                 and any(k in e.name for k in SGM_DEVICE_NAMES)),
+                key=lambda e: e.time_range.start)
+            print("    SGM launches in order: " + "; ".join(
+                f"{kernel_label(e.name)} "
+                f"{e.time_range.elapsed_us() / 1e3:.3f} ms"
+                for e in sgm_events), flush=True)
 
 
 def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate")):

@@ -34,11 +34,13 @@
 // across its lanes and keeps the carry in registers; L(q, d-1) / L(q, d+1)
 // across lane borders are one shuffle up and one down.
 //
-// 2d and 2e (chain_kernel) take the chain's loads out of its dependent
-// steps and cut the volume passes:
+// chain_kernel carries every path family (2d, 2e, and the up pass of 2f
+// and 2g), taking the chain's loads out of its dependent steps and cutting
+// the volume passes:
 //  * a ring of the next steps' inputs lives in registers (32 steps for
-//    2d's 768 chains, 8 for 2e's 1,024-3,582; half that at D > 128),
-//    refilled as each step is done, so a step seldom waits on memory;
+//    2d's 768 chains, 8 for the vertical stages' 1,024-3,582; half that at
+//    D > 128), refilled as each step is done, so a step seldom waits on
+//    memory;
 //  * the step works on two disparities at once, int16 pairs in 32-bit
 //    words, with Hopper's DPX 16x2 instructions (__vimin3_s16x2,
 //    __viaddmin_s16x2, __vimax3_s16x2), and m is one redux.sync
@@ -51,24 +53,28 @@
 //    int16 above).  The first launch of a stage writes single-path scratch
 //    volumes; the last family reads them and writes the stage's int16 sum
 //    once, as the TPU kernel folds hf + hb into its vertical pass.  2d:
-//    L->R into scratch, then R->L writes scratch + L (604 MB at D = 128,
-//    was 805).  2e: down-right and down-left together (2 x 1,791 chains,
-//    two scratch volumes), then down writes hsum + dr + dl + L (~1.1 GB,
-//    was 1.51).  Every element has one writer per launch and launches run
-//    in stream order, so there are no races and no atomics.
+//    L->R into scratch, then R->L writes scratch + L (604 MB at D = 128).
+//    2e walks down, 2f and 2g up, through one launch helper
+//    (vertical_paths, dy = +1 / -1): both diagonal families together
+//    (2 x (w + h - 1) chains, two scratch volumes), then the vertical
+//    family writes base + both + L once (~1.1 GB at D = 128).  Every
+//    element has one writer per launch and launches run in stream order,
+//    so there are no races and no atomics.
 //
-// path_kernel (2f, 2g) still loads each step in the step, with m from 5
-// xor-shuffles, and each family is its own launch that reads an
-// accumulator and writes the sum back (in place for the second and third
-// family).  2g (sgm_total_launch) is the up-path half of 2f:
-// the same three launches onto the partial sum, with the total volume as
-// its output.  The WTA epilogue of 2f is a second kernel, one warp per
-// pixel, over the 8-path total kept in device memory (int16):
+// 2f's WTA (wta_tile_kernel) runs after its up pass, over the 8-path total
+// kept in device memory (int16).  A block stages one row's columns [x0,
+// x0 + T + D - 1) in dynamic shared memory (T = 128 pixels at D <= 128: 64
+// KB at D = 128), so the total leaves DRAM about once (201 MB at 768 x
+// 1024 x 128; the halo of the next tile is read again, mostly from L2),
+// and takes the nine maps of its T pixels from there, one warp a pixel:
 //   left:  c0, best (ties -> smallest d), c1 (|d - best| > 1, capped at
 //          16000 like the TPU kernel's masked fill), cm/cc/cp at
 //          clip(best, 1, D-2) -1/0/+1;
 //   right: c0, best, c1 over cost_r(x, d) = total(x + d, d), 30000 where
 //          x + d >= W (integer only: it feeds the <= 1 px L/R check).
+// c0 and best are one redux.sync a side over a key of value and d, c1 a
+// second (wta_pixels).  tools/probe_sgm.py: the staging alone is about
+// half of its time.
 // 2h (sgm_wta_launch) is the left half alone over any (H, W, D) volume,
 // int16, int32 or float32, with the c1 cap as an argument (30000 for an
 // integer volume, 1e9 for a float one in ops/sgm.winner_takes_all); the
@@ -76,8 +82,6 @@
 // (8, 128) padding are gone: disparities >= D do not exist.  It reads the
 // volume once (200 MB at 768 x 1024 x 128 int16, 60 us at 3.35 TB/s) and
 // is bound by the warp reductions per pixel (3 x 5 shuffles).
-// Left for later: 2f and 2g on chain_kernel's design (ROADMAP B3), fusing
-// the WTA into the up pass.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -86,8 +90,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;             // chains (or pixels) per block
-constexpr int kPad = 1 << 24;         // disparities d >= D
+constexpr int kWarps = 4;             // chains (2h: pixels) per block
 constexpr int kC1Cap = 16000;
 constexpr int kRightOutOfRange = 30000;
 constexpr unsigned kFull = 0xffffffffu;
@@ -127,77 +130,8 @@ __device__ __forceinline__ T warp_min(T v) {
     default: return (int)cudaErrorInvalidValue;              \
   }
 
-// One warp per chain.  Chain numbering: rows for dy == 0, columns for
-// dx == 0; for a diagonal, chains 0..w-1 start on the first row of the
-// walk (column = chain) and chains w..w+h-2 on its first column.
-// path_kernel carries the up families of 2f and 2g, one launch each,
-// loading each step's cost and accumulator in the step itself; ROADMAP
-// queue 2, item B3, moves them onto chain_kernel below.
-template <int K>
-__global__ void __launch_bounds__(kWarps * 32)
-path_kernel(const uint8_t* __restrict__ cost, const int16_t* acc_in,
-            int16_t* acc_out, int h, int w, int dm, int dy, int dx, int p1,
-            int p2, int n_chains) {
-  const int chain = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (chain >= n_chains) return;   // warp-uniform
-  int y, x;
-  if (dy == 0) {
-    y = chain;
-    x = dx > 0 ? 0 : w - 1;
-  } else if (dx == 0 || chain < w) {
-    x = chain;
-    y = dy > 0 ? 0 : h - 1;
-  } else {
-    const int r = chain - w + 1;
-    y = dy > 0 ? r : h - 1 - r;
-    x = dx > 0 ? 0 : w - 1;
-  }
-  const int d0 = lane * K;
-  int prev[K];
-  bool first = true;
-  while (y >= 0 && y < h && x >= 0 && x < w) {
-    const size_t base = ((size_t)y * w + x) * dm;
-    int c[K], a[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = d0 + k;
-      c[k] = d < dm ? (int)cost[base + d] : 0;
-      a[k] = (acc_in != nullptr && d < dm) ? (int)acc_in[base + d] : 0;
-    }
-    int L[K];
-    if (first) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) L[k] = d0 + k < dm ? c[k] : kPad;
-      first = false;
-    } else {
-      int m = prev[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) m = min(m, prev[k]);
-      m = warp_min(m);
-      int below = __shfl_up_sync(kFull, prev[K - 1], 1);   // L(q, d0 - 1)
-      int above = __shfl_down_sync(kFull, prev[0], 1);     // L(q, d0 + K)
-      if (lane == 0) below = kPad;
-      if (lane == 31) above = kPad;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int lo = k > 0 ? prev[k - 1] : below;
-        const int hi = k < K - 1 ? prev[k + 1] : above;
-        const int v = min(min(prev[k], m + p2), min(lo, hi) + p1);
-        L[k] = d0 + k < dm ? c[k] + v - m : kPad;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (d0 + k < dm) acc_out[base + d0 + k] = (int16_t)(a[k] + L[k]);
-      prev[k] = L[k];
-    }
-    y += dy;
-    x += dx;
-  }
-}
-
-// ---- 2d and 2e: chains whose loads run ahead of the dependent steps ----
+// ---- every path family: chains whose loads run ahead of the dependent
+// steps ----
 
 // K values of T (uint8_t or int16_t) of one lane, packed into 32-bit words.
 // With VEC the lane's K values are one aligned vector, all of them
@@ -302,9 +236,10 @@ struct Chains {
 
 // Steps a chain loads ahead.  The card needs some MB in flight to keep
 // its memory busy (3.35 TB/s over ~1 us); 2d has 768 chains of 128-256 B
-// a step, so it loads 32 steps ahead, while 2e has 1,024 to 3,582 chains
-// and loads 8 ahead (tools/probe_sgm.py times both).  At K = 8 the ring
-// is half as deep, to keep its registers within bounds.
+// a step, so it loads 32 steps ahead, while the vertical stages (2e down,
+// the up pass of 2f and 2g) have 1,024 to 3,582 chains and load 8 ahead
+// (tools/probe_sgm.py times each).  At K = 8 the ring is half as deep, to
+// keep its registers within bounds.
 constexpr int kAhead2d = 32;
 constexpr int kAhead2e = 8;
 template <int K, int AHEAD>
@@ -357,10 +292,13 @@ __device__ __forceinline__ void from_pairs(Pack<int16_t, K>& p,
 }
 
 // One warp per chain, the D disparities across its lanes (K consecutive
-// ones a lane, K = 2, 4 or 8).  A ring of ring_steps<K, AHEAD>() steps
-// of inputs lives in registers: step t's slot is refilled with step t + A as
-// soon as step t is done, so a step waits on memory only if the chain
-// runs ahead of its loads.  The dependent chain of a step is the lane
+// ones a lane, K = 2, 4 or 8).  Chain numbering: rows for dy == 0,
+// columns for dx == 0; for a diagonal, chains 0..w-1 start on the first
+// row of the walk (column = chain) and chains w..w+h-2 on its first
+// column.  A ring of ring_steps<K, AHEAD>() steps of inputs lives in
+// registers: step t's slot is refilled with step t + A as soon as step t
+// is done, so a step waits on memory only if the chain runs ahead of its
+// loads.  The dependent chain of a step is the lane
 // min, one redux.sync and three DPX / add instructions; the two shuffles
 // for d -+ 1 run beside the redux.  With P1 > P2 the P1 term can never
 // undercut m + P2, so P1 is taken as min(P1, P2): the same integers.
@@ -479,6 +417,178 @@ chain_kernel(const Chains a) {
   }
 }
 
+// ---- 2f's WTA: row tiles of the total in shared memory ----
+
+// Pixels of one row a block of wta_tile_kernel takes: kWtaTile at D <= 128,
+// half that above, so that the staged (T + D - 1) x D int16 tile stays
+// within the 227 KB a block may hold (64 KB at D = 128, 160 KB at D = 256).
+constexpr int kWtaTile = 128;
+constexpr int kWtaWarps = 8;   // a warp takes T / 8 pixels in turn
+constexpr int wta_tile(int dm) {
+  return dm <= 128 ? kWtaTile : kWtaTile / 2;
+}
+size_t wta_tile_bytes(int dm) {
+  return (size_t)(wta_tile(dm) + dm - 1) * dm * sizeof(int16_t);
+}
+
+// The maps of a warp's pixels xw .. xw + np - 1 (< w) from the staged rows
+// (row x at rows + (x - x0) * dm).  Lane l holds the int16 words j = l +
+// 32k (k < NW) of a pixel's D values, disparities 2j and 2j + 1.  For an
+// even D the left read of word j is one 32-bit load (32 lanes on 32
+// consecutive words) and the right read of total(x + d, d) is at word
+// (x - x0 + e) * D / 2 + j * (D + 1) for d = 2j + e: an odd lane stride, so
+// each read touches 32 banks.  A value v at d is the key (v + 32768) * 256
+// + d (one IMAD): the smallest key is the smallest v, ties to the smallest
+// d, so c0 and best are one redux.sync a side and c1 a second.  Two pixels
+// go through the loop together (their chains interleave); lane i keeps
+// pixel i's keys and c1s, and the lanes store the nine maps at the end,
+// np consecutive ints a map.  EDGE: some x + d reach w (the last tiles),
+// where the right view reads 30000 instead.
+template <int NW, bool VEC, bool EDGE>
+__device__ __forceinline__ void wta_pixels(const int16_t* rows, int x0,
+                                           int xw, int np, int w, int dm,
+                                           int lane, int* maps, size_t plane,
+                                           size_t pix0) {
+  constexpr int E = 2 * NW;   // values a lane holds
+  bool on[E];
+  int off[E];                 // the right read's offset from the row
+  unsigned kd[E];             // 32768 * 256 + d
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = 2 * (lane + 32 * k) + e;
+      on[2 * k + e] = d < dm;
+      off[2 * k + e] = d * (dm + 1);
+      kd[2 * k + e] = (32768u << 8) + (unsigned)d;
+    }
+  unsigned mkl = 0, mkr = 0;
+  int mcl = 0, mcr = 0;
+  for (int i0 = 0; i0 < np; i0 += 2) {
+    unsigned kl[2], kr[2];
+    int vl[2][E], vr[2][E];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int x = xw + i0 + q;   // x >= w: garbage, never stored
+      const int16_t* row = rows + (x - x0) * dm;
+      kl[q] = kr[q] = UINT_MAX;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        if constexpr (VEC) {
+          const unsigned pr =
+              on[2 * k] ? ((const unsigned*)row)[lane + 32 * k] : 0u;
+          vl[q][2 * k] = (int)(int16_t)(pr & 0xffffu);
+          vl[q][2 * k + 1] = (int)pr >> 16;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = 2 * k + e;
+          if (on[u]) {
+            if constexpr (!VEC) vl[q][u] = row[2 * (lane + 32 * k) + e];
+            vr[q][u] = !EDGE || x + 2 * (lane + 32 * k) + e < w
+                           ? (int)row[off[u]] : kRightOutOfRange;
+            kl[q] = min(kl[q], (unsigned)(vl[q][u] * 256) + kd[u]);
+            kr[q] = min(kr[q], (unsigned)(vr[q][u] * 256) + kd[u]);
+          }
+        }
+      }
+      kl[q] = __reduce_min_sync(kFull, kl[q]);
+      kr[q] = __reduce_min_sync(kFull, kr[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int bl = (int)(kl[q] & 0xffu), br = (int)(kr[q] & 0xffu);
+      int cl = kC1Cap, cr = kC1Cap;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        const int tl = 2 * (lane + 32 * k) + 1 - bl;   // |d - best| > 1 for
+        const int tr = 2 * (lane + 32 * k) + 1 - br;   // d = 2j + e: t + e
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = 2 * k + e;
+          if (on[u] && (unsigned)(tl + e) > 2u) cl = min(cl, vl[q][u]);
+          if (on[u] && (unsigned)(tr + e) > 2u) cr = min(cr, vr[q][u]);
+        }
+      }
+      cl = __reduce_min_sync(kFull, cl);
+      cr = __reduce_min_sync(kFull, cr);
+      const bool mine = lane == i0 + q;
+      mkl = mine ? kl[q] : mkl;
+      mkr = mine ? kr[q] : mkr;
+      mcl = mine ? cl : mcl;
+      mcr = mine ? cr : mcr;
+    }
+  }
+  if (lane < np) {
+    const int best = (int)(mkl & 0xffu);
+    const int bm = min(max(best, 1), dm - 2);
+    const int16_t* row = rows + (xw + lane - x0) * dm;
+    const size_t pix = pix0 + lane;
+    maps[pix] = (int)(mkl >> 8) - 32768;
+    maps[plane + pix] = best;
+    maps[2 * plane + pix] = mcl;
+    maps[3 * plane + pix] = row[bm - 1];
+    maps[4 * plane + pix] = row[bm];
+    maps[5 * plane + pix] = row[bm + 1];
+    maps[6 * plane + pix] = (int)(mkr >> 8) - 32768;
+    maps[7 * plane + pix] = (int)(mkr & 0xffu);
+    maps[8 * plane + pix] = mcr;
+  }
+}
+
+// Block (blockIdx.x, y): pixels x0 .. x0 + T - 1 of row y, x0 =
+// blockIdx.x * T.  The block copies total columns [x0, min(x0 + T + D - 1,
+// w)) of the row into shared memory (16-byte copies with VEC: D % 8 == 0
+// and an aligned volume), then each warp takes T / 8 pixels
+// (wta_pixels).
+template <int NW, bool VEC>
+__global__ void __launch_bounds__(kWtaWarps * 32)
+wta_tile_kernel(const int16_t* __restrict__ total, int h, int w, int dm,
+                int tile, int* __restrict__ maps) {
+  extern __shared__ __align__(16) int16_t rows[];
+  const int y = blockIdx.y;
+  const int x0 = blockIdx.x * tile;
+  const int x1 = min(x0 + tile + dm - 1, w);
+  const int n = (x1 - x0) * dm;
+  const int16_t* src = total + ((size_t)y * w + x0) * dm;
+  if constexpr (VEC) {
+    constexpr int U = 8;   // 16-byte loads in flight a thread
+    const int n16 = n / 8;
+    const uint4* s16 = (const uint4*)src;
+    uint4* d16 = (uint4*)rows;
+    for (int i0 = threadIdx.x; i0 < n16; i0 += U * blockDim.x) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < n16) v[u] = s16[i];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < n16) d16[i] = v[u];
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) rows[i] = src[i];
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int per_warp = tile / kWtaWarps;   // even, <= 32
+  const int xw = x0 + (threadIdx.x >> 5) * per_warp;
+  const int np = min(per_warp, w - xw);    // this warp's pixels
+  if (np <= 0) return;
+  const size_t plane = (size_t)h * w;
+  const size_t pix0 = (size_t)y * w + xw;
+  if (x0 + tile + dm - 1 <= w)
+    wta_pixels<NW, VEC, false>(rows, x0, xw, np, w, dm, lane, maps, plane,
+                               pix0);
+  else
+    wta_pixels<NW, VEC, true>(rows, x0, xw, np, w, dm, lane, maps, plane,
+                              pix0);
+}
+
 // c0 = min, best = smallest d reaching it, c1 = min over |d - best| > 1
 // capped at `cap`, of one pixel's values spread K per lane (lane values
 // at d >= dm are not disparities and are never read).
@@ -503,46 +613,6 @@ __device__ __forceinline__ void wta3(const T v[K], int d0, int dm, T cap,
   for (int k = 0; k < K; ++k)
     if (on[k] && abs(d0 + k - best) > 1) s = vmin(s, v[k]);
   c1 = warp_min(s);
-}
-
-// One warp per pixel; maps (9, h, w) int32: left c0, best, c1, cm, cc, cp,
-// right c0, best, c1.
-template <int K>
-__global__ void __launch_bounds__(kWarps * 32)
-wta_kernel(const int16_t* __restrict__ total, int h, int w, int dm,
-           int* __restrict__ maps) {
-  const size_t plane = (size_t)h * w;
-  const size_t pix = (size_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (pix >= plane) return;   // warp-uniform
-  const int x = (int)(pix % w);
-  const int d0 = lane * K;
-  const int16_t* t = total + pix * dm;
-  int v[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = d0 + k < dm ? (int)t[d0 + k] : 0;
-  int c0, best, c1;
-  wta3<int, K>(v, d0, dm, kC1Cap, c0, best, c1);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = d0 + k;
-    v[k] = d >= dm ? 0
-           : x + d < w ? (int)total[(pix + d) * dm + d] : kRightOutOfRange;
-  }
-  int r0, rbest, r1;
-  wta3<int, K>(v, d0, dm, kC1Cap, r0, rbest, r1);
-  if (lane == 0) {
-    const int bm = min(max(best, 1), dm - 2);
-    maps[pix] = c0;
-    maps[plane + pix] = best;
-    maps[2 * plane + pix] = c1;
-    maps[3 * plane + pix] = t[bm - 1];
-    maps[4 * plane + pix] = t[bm];
-    maps[5 * plane + pix] = t[bm + 1];
-    maps[6 * plane + pix] = r0;
-    maps[7 * plane + pix] = rbest;
-    maps[8 * plane + pix] = r1;
-  }
 }
 
 // 2h: one warp per pixel of an (n, dm) volume of T, compared in C (int for
@@ -576,30 +646,6 @@ wta_maps_kernel(const T* __restrict__ vol, size_t n, int dm, C cap,
 
 unsigned warp_blocks(size_t n_warps) {
   return (unsigned)((n_warps + kWarps - 1) / kWarps);
-}
-
-// One path family: out = in + L along (dy, dx); in may be null (out = L)
-// or equal to out (in place).  Returns cudaGetLastError().
-int path(const void* cost, const void* in, void* out, int h, int w, int dm,
-         int dy, int dx, int p1, int p2, void* stream) {
-  const int n = dy == 0 ? h : dx == 0 ? w : w + h - 1;
-  SGM_DISPATCH_K(dm, path_kernel<K><<<warp_blocks(n), kWarps * 32, 0,
-                                      (cudaStream_t)stream>>>(
-      (const uint8_t*)cost, (const int16_t*)in, (int16_t*)out, h, w, dm, dy,
-      dx, p1, p2, n));
-  return (int)cudaGetLastError();
-}
-
-// The up half of the aggregation: total = partial + up (+ up-right +
-// up-left when diag), int16 (2g, and the first half of 2f).
-int up_paths(const void* cost, const void* partial, void* total, int h,
-             int w, int dm, int p1, int p2, int diag, void* stream) {
-  int rc = path(cost, partial, total, h, w, dm, -1, 0, p1, p2, stream);
-  if (diag) {
-    if (rc == 0) rc = path(cost, total, total, h, w, dm, -1, 1, p1, p2, stream);
-    if (rc == 0) rc = path(cost, total, total, h, w, dm, -1, -1, p1, p2, stream);
-  }
-  return rc;
 }
 
 template <typename T, typename C>
@@ -669,6 +715,74 @@ Chains chains_of(const void* cost, int h, int w, int dm, int p1, int p2,
   return a;
 }
 
+// The vertical paths onto `base`, int16: 2e walks down (dy = +1), the up
+// pass of 2f and 2g walks up (dy = -1).  out = base + the vertical family
+// (+ both diagonal families when diag).  With diag, launch 1 walks both
+// diagonal families (dx = +1 and -1, 2 x (w + h - 1) chains) into the
+// scratch volumes sa and sb (h, w, dm) of the scratch type, and launch 2
+// walks the vertical family and writes out = base + sa + sb + L once.
+template <int AHEAD>
+int vertical_paths(const void* cost, const void* base, void* sa, void* sb,
+                   void* out, int h, int w, int dm, int p1, int p2, int diag,
+                   int scratch16, int dy, cudaStream_t s) {
+  Chains a = chains_of(cost, h, w, dm, p1, p2, dy);
+  if (diag) {
+    a.n_chains = w + h - 1;
+    a.n_families = 2;
+    a.dx[0] = 1;
+    a.dx[1] = -1;
+    a.out[0] = sa;
+    a.out[1] = sb;
+    const int rc = run_chains<AHEAD, 0, false, true>(a, scratch16, s);
+    if (rc != 0) return rc;
+    a.n_families = 1;
+    a.add[0] = sa;
+    a.add[1] = sb;
+    a.out[1] = nullptr;
+  }
+  a.n_chains = w;
+  a.dx[0] = 0;
+  a.hsum = (const int16_t*)base;
+  a.out[0] = out;
+  return diag ? run_chains<AHEAD, 2, true, false>(a, scratch16, s)
+              : launch_chains<AHEAD, uint8_t, 0, true, false>(a, s);
+}
+
+// wta_tile_kernel with NW = ceil(dm / 64) words a lane, its tile and its
+// dynamic shared memory (above 48 KB only after cudaFuncSetAttribute).
+template <int NW, bool VEC>
+int wta_tiles_nw(const void* total, void* maps, int h, int w, int dm,
+                 cudaStream_t s) {
+  const int tile = wta_tile(dm);
+  const size_t bytes = wta_tile_bytes(dm);
+  const cudaError_t e = cudaFuncSetAttribute(
+      wta_tile_kernel<NW, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((w + tile - 1) / tile), (unsigned)h);
+  wta_tile_kernel<NW, VEC><<<grid, kWtaWarps * 32, bytes, s>>>(
+      (const int16_t*)total, h, w, dm, tile, (int*)maps);
+  return (int)cudaGetLastError();
+}
+
+int wta_tiles(const void* total, void* maps, int h, int w, int dm,
+              cudaStream_t s) {
+  if (h > 65535) return (int)cudaErrorInvalidValue;   // gridDim.y
+  const bool vec = dm % 8 == 0 && (uintptr_t)total % 16 == 0;
+#define SGM_WTA_NW(NN)                                                     \
+  case NN:                                                                 \
+    return vec ? wta_tiles_nw<NN, true>(total, maps, h, w, dm, s)          \
+               : wta_tiles_nw<NN, false>(total, maps, h, w, dm, s);
+  switch ((dm + 63) / 64) {
+    SGM_WTA_NW(1)
+    SGM_WTA_NW(2)
+    SGM_WTA_NW(3)
+    SGM_WTA_NW(4)
+  }
+#undef SGM_WTA_NW
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // 2d: cost (h, w, dm) uint8 -> out (h, w, dm) int16 = left->right +
@@ -692,62 +806,54 @@ extern "C" int sgm_horizontal_launch(const void* cost, void* scratch,
   return run_chains<kAhead2d, 1, false, false>(a, scratch16, s);
 }
 
-// 2e: out = hsum + down (+ down-right + down-left when diag), int16.  With
-// diag, launch 1 walks both diagonal families (2 x (w + h - 1) chains)
-// into the scratch volumes dr and dl (h, w, dm) of the scratch type, and
-// launch 2 walks down and writes out = hsum + dr + dl + L once.
+// 2e: out = hsum + down (+ down-right + down-left when diag), int16,
+// through the scratch volumes dr and dl with diag (vertical_paths).
 extern "C" int sgm_partial_launch(const void* cost, const void* hsum,
                                   void* scratch_dr, void* scratch_dl,
                                   void* out, int h, int w, int dm, int p1,
                                   int p2, int diag, int scratch16,
                                   void* stream) {
   if (bad_shape(h, w, dm)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  Chains a = chains_of(cost, h, w, dm, p1, p2, 1);
-  if (diag) {
-    a.n_chains = w + h - 1;
-    a.n_families = 2;
-    a.dx[0] = 1;
-    a.dx[1] = -1;
-    a.out[0] = scratch_dr;
-    a.out[1] = scratch_dl;
-    const int rc = run_chains<kAhead2e, 0, false, true>(a, scratch16, s);
-    if (rc != 0) return rc;
-    a.n_families = 1;
-    a.add[0] = scratch_dr;
-    a.add[1] = scratch_dl;
-    a.out[1] = nullptr;
-  }
-  a.n_chains = w;
-  a.dx[0] = 0;
-  a.hsum = (const int16_t*)hsum;
-  a.out[0] = out;
-  return diag ? run_chains<kAhead2e, 2, true, false>(a, scratch16, s)
-              : launch_chains<kAhead2e, uint8_t, 0, true, false>(a, s);
+  return vertical_paths<kAhead2e>(cost, hsum, scratch_dr, scratch_dl, out, h,
+                                  w, dm, p1, p2, diag, scratch16, 1,
+                                  (cudaStream_t)stream);
 }
 
 // 2g: total = partial + up (+ up-right + up-left when diag), the full
-// 4/8-path sum (h, w, dm) int16.
+// 4/8-path sum (h, w, dm) int16, through the scratch volumes ur and ul
+// with diag (vertical_paths).
 extern "C" int sgm_total_launch(const void* cost, const void* partial,
+                                void* scratch_ur, void* scratch_ul,
                                 void* total, int h, int w, int dm, int p1,
-                                int p2, int diag, void* stream) {
+                                int p2, int diag, int scratch16,
+                                void* stream) {
   if (bad_shape(h, w, dm)) return (int)cudaErrorInvalidValue;
-  return up_paths(cost, partial, total, h, w, dm, p1, p2, diag, stream);
+  return vertical_paths<kAhead2e>(cost, partial, scratch_ur, scratch_ul,
+                                  total, h, w, dm, p1, p2, diag, scratch16,
+                                  -1, (cudaStream_t)stream);
 }
 
-// 2f: the up paths of 2g into the int16 scratch `total`, then the 9 WTA
-// maps (9, h, w) int32.
+// 2f: the up pass of 2g into the int16 volume `total`, then the 9 WTA
+// maps (9, h, w) int32 from row tiles of it (wta_tile_kernel).
 extern "C" int sgm_total_wta_launch(const void* cost, const void* partial,
+                                    void* scratch_ur, void* scratch_ul,
                                     void* total, void* maps, int h, int w,
                                     int dm, int p1, int p2, int diag,
-                                    void* stream) {
+                                    int scratch16, void* stream) {
   if (bad_shape(h, w, dm)) return (int)cudaErrorInvalidValue;
-  int rc = up_paths(cost, partial, total, h, w, dm, p1, p2, diag, stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = vertical_paths<kAhead2e>(cost, partial, scratch_ur,
+                                          scratch_ul, total, h, w, dm, p1,
+                                          p2, diag, scratch16, -1, s);
   if (rc != 0) return rc;
-  SGM_DISPATCH_K(dm, wta_kernel<K><<<warp_blocks((size_t)h * w),
-                                     kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)total, h, w, dm, (int*)maps));
-  return (int)cudaGetLastError();
+  return wta_tiles(total, maps, h, w, dm, s);
+}
+
+// The pixels a block of 2f's WTA takes at this D; *bytes gets its dynamic
+// shared memory.
+extern "C" int sgm_total_wta_tile(int dm, int* bytes) {
+  *bytes = (int)wta_tile_bytes(dm);
+  return wta_tile(dm);
 }
 
 // 2h: the left WTA maps of a (h, w, dm) volume; dtype 0 = int16, 1 =

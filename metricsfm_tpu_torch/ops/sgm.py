@@ -35,8 +35,9 @@ def aggregate_paths(cost, p1: int = 10, p2: int = 120, num_paths: int = 8):
     p1, p2 = int(p1), int(p2)
     h = sgm_kernel.sgm_horizontal(cost, p1, p2)
     part = sgm_kernel.sgm_partial(cost, h, p1, p2, num_paths)
-    # at most two int16 volumes live at once, beside the cost; while 2e
-    # runs also its two single-path scratch volumes (uint8 for P2 <= 191)
+    # at most two int16 volumes live at once, beside the cost; while 2e or
+    # 2g runs, also its two single-path scratch volumes of the diagonals
+    # (uint8 for P2 <= 191, int16 above; 8 paths only)
     del h
     return sgm_kernel.sgm_total(cost, part, p1, p2, num_paths)
 
@@ -114,8 +115,10 @@ def stereo_sgm(left, right, max_disp: int = 128, p1: int = 10,
     cost = sgm_kernel.census_cost(left, right, D)
     hsum = sgm_kernel.sgm_horizontal(cost, p1, p2)
     part = sgm_kernel.sgm_partial(cost, hsum, p1, p2, num_paths)
-    # at most two int16 volumes live at once, beside the cost; while 2e
-    # runs also its two single-path scratch volumes (uint8 for P2 <= 191)
+    # at most two int16 volumes live at once, beside the cost; while 2e or
+    # 2f runs, also its two single-path scratch volumes of the diagonals
+    # (uint8 for P2 <= 191, int16 above; 8 paths only), and while 2f runs
+    # its nine (H, W) int32 WTA maps
     del hsum
     wta_l, wta_r = sgm_kernel.sgm_total_wta(cost, part, p1, p2, num_paths)
     del cost, part

@@ -23,10 +23,10 @@ version; any other device raises.  Each wrapper counts its launches in
 Layouts hold the semantics, not the TPU's padding: the cost volume is
 (H, W, D) uint8 (Hamming costs <= 64), aggregated volumes are (H, W, D)
 int16 (a path value is <= 64 + P2 and the 8-path sum <= 8 * 184 = 1,472),
-and the WTA maps are (H, W) int32.  On the card 2d and 2e pass single
-path values between their launches in scratch volumes of
-`scratch_dtype(P2)`: uint8 while 64 + P2 <= 255, int16 above.  All values
-are integers, so kernel and plain version agree exactly whatever the
+and the WTA maps are (H, W) int32.  On the card 2d, 2e and the up pass
+of 2f and 2g pass single path values between their launches in scratch
+volumes of `scratch_dtype(P2)`: uint8 while 64 + P2 <= 255, int16 above.
+All values are integers, so kernel and plain version agree exactly whatever the
 order of the sums.  2h also takes int32 and float32 volumes (float32 maps
 but an int32 `best`); a float minimum is exact too, so there as well the
 two agree exactly.  Semantics:
@@ -313,7 +313,7 @@ census_cost.launches = 0
 
 
 def scratch_dtype(p2: int):
-    """The type of the single-path scratch volumes of kernels 2d and 2e: a
+    """The type of the single-path scratch volumes of kernels 2d-2g: a
     single path value is <= 64 + P2, so uint8 where that is <= 255, int16
     above."""
     if p2 < 0:
@@ -344,6 +344,17 @@ def sgm_horizontal(cost, p1: int = 10, p2: int = 120):
 sgm_horizontal.launches = 0
 
 
+def _diag_scratch(shape, p2: int, num_paths: int, dev):
+    """The two single-path scratch volumes of a vertical stage's diagonals
+    (8 paths; None, None with 4) and the scratch-type flag of its C
+    entry."""
+    st = scratch_dtype(p2)
+    if num_paths < 8:
+        return None, None, int(st == torch.int16)
+    sa, sb = torch.empty((2, *shape), dtype=st, device=dev)
+    return sa, sb, int(st == torch.int16)
+
+
 def sgm_partial(cost, hsum, p1: int = 10, p2: int = 120,
                 num_paths: int = 8):
     """Kernel 2e: hsum + down (+ both down diagonals), (H, W, D) int16.
@@ -357,15 +368,11 @@ def sgm_partial(cost, hsum, p1: int = 10, p2: int = 120,
     if dev.type == "cpu":
         return partial_reference(cost, hsum, p1, p2, num_paths)
     H, W, D = cost.shape
-    diag = num_paths >= 8
-    st = scratch_dtype(p2)
-    dr = dl = None
-    if diag:
-        dr, dl = torch.empty((2, H, W, D), dtype=st, device=dev)
+    dr, dl, s16 = _diag_scratch(cost.shape, p2, num_paths, dev)
     out = torch.empty((H, W, D), dtype=torch.int16, device=dev)
     _launch("sgm_aggregate", "sgm_partial_launch", dev,
             (cost, hsum, dr, dl, out),
-            (H, W, D, p1, p2, int(diag), int(st == torch.int16)))
+            (H, W, D, p1, p2, int(num_paths >= 8), s16))
     sgm_partial.launches += 1
     return out
 
@@ -375,9 +382,12 @@ sgm_partial.launches = 0
 
 def sgm_total_wta(cost, partial, p1: int = 10, p2: int = 120,
                   num_paths: int = 8):
-    """Kernel 2f: up paths onto `partial` (the full path sum, kept in a
-    device scratch volume), then the left and right WTA maps.  Returns
-    (left, right) dicts of (H, W) int32 maps."""
+    """Kernel 2f: up paths onto `partial`, then the left and right WTA
+    maps.  Returns (left, right) dicts of (H, W) int32 maps.  On the card
+    the up pass is 2g's (with 8 paths the two up diagonals go through two
+    single-path scratch volumes of `scratch_dtype(p2)`) into an int16
+    total, which the WTA kernel reads in row tiles; the scratch and the
+    total are freed before the call returns."""
     _check_volume("cost", cost, torch.uint8)
     _check_volume("partial", partial, torch.int16, cost.shape)
     _check_penalties(p1, p2, num_paths)
@@ -385,11 +395,12 @@ def sgm_total_wta(cost, partial, p1: int = 10, p2: int = 120,
     if dev.type == "cpu":
         return total_wta_reference(cost, partial, p1, p2, num_paths)
     H, W, D = cost.shape
+    ur, ul, s16 = _diag_scratch(cost.shape, p2, num_paths, dev)
     total = torch.empty((H, W, D), dtype=torch.int16, device=dev)
     maps = torch.empty((9, H, W), dtype=torch.int32, device=dev)
     _launch("sgm_aggregate", "sgm_total_wta_launch", dev,
-            (cost, partial, total, maps), (H, W, D, p1, p2,
-                                           int(num_paths >= 8)))
+            (cost, partial, ur, ul, total, maps),
+            (H, W, D, p1, p2, int(num_paths >= 8), s16))
     sgm_total_wta.launches += 1
     left = dict(zip(WTA_LEFT, maps[:6]))
     right = dict(zip(WTA_RIGHT, maps[6:]))
@@ -402,7 +413,9 @@ sgm_total_wta.launches = 0
 def sgm_total(cost, partial, p1: int = 10, p2: int = 120,
               num_paths: int = 8):
     """Kernel 2g: up paths onto `partial`, the full 4/8-path sum as an
-    (H, W, D) int16 volume."""
+    (H, W, D) int16 volume.  On the card with 8 paths the two up
+    diagonals go through two single-path scratch volumes
+    (`scratch_dtype(p2)`), freed before the call returns."""
     _check_volume("cost", cost, torch.uint8)
     _check_volume("partial", partial, torch.int16, cost.shape)
     _check_penalties(p1, p2, num_paths)
@@ -410,9 +423,11 @@ def sgm_total(cost, partial, p1: int = 10, p2: int = 120,
     if dev.type == "cpu":
         return total_reference(cost, partial, p1, p2, num_paths)
     H, W, D = cost.shape
+    ur, ul, s16 = _diag_scratch(cost.shape, p2, num_paths, dev)
     total = torch.empty((H, W, D), dtype=torch.int16, device=dev)
     _launch("sgm_aggregate", "sgm_total_launch", dev,
-            (cost, partial, total), (H, W, D, p1, p2, int(num_paths >= 8)))
+            (cost, partial, ur, ul, total),
+            (H, W, D, p1, p2, int(num_paths >= 8), s16))
     sgm_total.launches += 1
     return total
 

@@ -6,6 +6,8 @@ tests pin the contract the CUDA kernels are held to on the card:
     Pallas census_cost_pallas in interpret mode (exact integers);
   * the horizontal (2d), partial (2e) and total (2f) path sums equal to a
     literal per-pixel recurrence, and aggregate_paths to the JAX scan;
+  * 2f's wrapper (P2 120 and 200, a partial of any sign) equal to that
+    recurrence summed in int64 and cast to int16, then a per-pixel WTA;
   * the 9 WTA maps (2f) equal to aggregate_wta_pallas in interpret mode;
   * stereo_sgm equal to the JAX fused branch (census_cost_pallas ->
     aggregate_wta_pallas -> _disp_from_wta -> median3 -> lr_consistency,
@@ -149,6 +151,70 @@ def test_scratch_dtype_holds_every_single_path_value(p2):
         assert int(L.max()) == 64 + p2
         assert int(L.min()) >= 0
         assert torch.equal(L.to(st).to(torch.int32), L)
+
+
+def _wrap16(x):
+    """An int64 sum cast to int16, wrapping as the int32 add does."""
+    return ((x + 32768) % 65536 - 32768).astype(np.int16)
+
+
+def _partial_input(rng, cost, p1, p2, num_paths, signed):
+    """2f / 2g's input: the plain stage sum 2d + 2e, or int16 of any sign
+    (a caller's partial that wraps)."""
+    if signed:
+        return rng.integers(-32768, 32768, size=cost.shape).astype(np.int16)
+    return _paths_bruteforce(cost, HORIZONTAL + DOWN[num_paths], p1,
+                             p2).astype(np.int16)
+
+
+def _wta_bruteforce(total):
+    """The nine WTA maps of an (H, W, D) total, pixel by pixel: left c0,
+    best (first d), c1 over |d - best| > 1 capped at 16000, cm/cc/cp;
+    right the same c0/best/c1 over total(x + d, d), 30000 past W."""
+    H, W, D = total.shape
+    t = total.astype(np.int64)
+    out = {k: np.zeros((H, W), np.int64) for k in (
+        "c0", "best", "c1", "cm", "cc", "cp", "r0", "rbest", "r1")}
+    d = np.arange(D)
+    for y in range(H):
+        for x in range(W):
+            for side, v in (("", t[y, x]), ("r", np.array(
+                    [t[y, x + e, e] if x + e < W else 30000
+                     for e in range(D)]))):
+                best = int(np.argmin(v))
+                far = np.abs(d - best) > 1
+                c1 = min(16000, int(v[far].min())) if far.any() else 16000
+                if side:
+                    out["r0"][y, x], out["rbest"][y, x] = v[best], best
+                    out["r1"][y, x] = c1
+                else:
+                    bm = min(max(best, 1), D - 2)
+                    out["c0"][y, x], out["best"][y, x] = v[best], best
+                    out["c1"][y, x] = c1
+                    out["cm"][y, x], out["cc"][y, x], out["cp"][y, x] = \
+                        v[bm - 1], v[bm], v[bm + 1]
+    return out
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("p2", [120, 200])
+@pytest.mark.parametrize("num_paths", [4, 8])
+def test_total_wta_wrapper_matches_bruteforce(rng, num_paths, p2, signed):
+    """Kernel 2f's wrapper on the CPU: the up paths onto the partial sum
+    (the plain 2d + 2e, or int16 of any sign), summed in int64 and cast
+    to int16, then the nine maps pixel by pixel; P2 = 200 is where the
+    card's single-path scratch volumes are int16.  Tolerance 0."""
+    cost = rng.integers(0, 65, size=(9, 11, 7))
+    part = _partial_input(rng, cost, 10, p2, num_paths, signed)
+    total = _wrap16(part.astype(np.int64) + _paths_bruteforce(
+        cost, UP[num_paths], 10, p2))
+    want = _wta_bruteforce(total)
+    tl, tr = sgm_kernel.sgm_total_wta(torch.tensor(cost.astype(np.uint8)),
+                                      torch.tensor(part), 10, p2, num_paths)
+    got = {**tl, "r0": tr["c0"], "rbest": tr["best"], "r1": tr["c1"]}
+    for k, v in want.items():
+        assert got[k].dtype == torch.int32
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
 
 
 def _wta_vs_pallas(jl, jr, tl, tr):
@@ -306,6 +372,15 @@ def test_wrappers_check_arguments():
                                  num_paths=6)
     with pytest.raises(ValueError):
         sgm_kernel.sgm_horizontal(c, 10, 4032)      # 8 x (64 + P2) > int16
+    part = torch.zeros((4, 5, 8), dtype=torch.int16)
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_total_wta(c, part, 10, 4032)
+    with pytest.raises(TypeError):
+        sgm_kernel.sgm_total_wta(c, part.to(torch.int32))
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_total_wta(c, part[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_total_wta(c.to("meta"), part.to("meta"))
     with pytest.raises(ValueError):
         sgm_kernel.scratch_dtype(-1)
     with pytest.raises(TypeError):

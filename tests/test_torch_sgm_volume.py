@@ -1,5 +1,6 @@
 """The SGM volume path of the PyTorch port against the JAX package, on the
-CPU: kernels 2g (sgm_total) and 2h (wta), `aggregate_paths` and
+CPU: kernels 2g (sgm_total, also against the literal recurrence at P2
+120 and 200 and on a partial of any sign) and 2h (wta), `aggregate_paths` and
 `winner_takes_all` through them, and `stereo_sgm_volume` against the JAX
 stereo_sgm branch that writes the summed volume (the one it runs on the
 CPU).  CPU tensors run each kernel's plain version; the Pallas kernels run
@@ -14,7 +15,8 @@ from metricsfm_tpu.ops import sgm as jsgm
 from metricsfm_tpu.ops.pallas import sgm_kernel as jk
 from metricsfm_tpu_torch.ops import sgm, sgm_kernel
 from metricsfm_tpu_torch.utils import synth
-from tests.test_torch_sgm import DOWN, HORIZONTAL, UP, _paths_bruteforce
+from tests.test_torch_sgm import (DOWN, HORIZONTAL, UP, _partial_input,
+                                  _paths_bruteforce, _wrap16)
 from tests.torch_threads import torch_threads  # noqa: F401
 
 
@@ -37,6 +39,24 @@ def test_sgm_total_matches_pallas_and_bruteforce(rng, num_paths):
     np.testing.assert_array_equal(
         total.numpy(), _paths_bruteforce(
             cost, HORIZONTAL + DOWN[num_paths] + UP[num_paths]))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("p2", [120, 200])
+@pytest.mark.parametrize("num_paths", [4, 8])
+def test_sgm_total_wrapper_matches_bruteforce(rng, num_paths, p2, signed):
+    """2g's wrapper on the CPU: the up paths onto the partial sum (the
+    plain 2d + 2e, or int16 of any sign), against the literal recurrence
+    summed in int64 and cast to int16; P2 = 200 is where the card's
+    single-path scratch volumes are int16.  Tolerance 0."""
+    cost = rng.integers(0, 65, size=(9, 11, 7))
+    part = _partial_input(rng, cost, 10, p2, num_paths, signed)
+    want = _wrap16(part.astype(np.int64) + _paths_bruteforce(
+        cost, UP[num_paths], 10, p2))
+    got = sgm_kernel.sgm_total(torch.tensor(cost.astype(np.uint8)),
+                               torch.tensor(part), 10, p2, num_paths)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("D,hi", [(16, 7999), (37, 7999), (37, 12)])
@@ -142,6 +162,8 @@ def test_volume_wrappers_check_arguments():
         sgm_kernel.sgm_total(c, part, num_paths=2)
     with pytest.raises(ValueError):
         sgm_kernel.sgm_total(c.to("meta"), part.to("meta"))
+    with pytest.raises(ValueError):
+        sgm_kernel.sgm_total(c, part, 10, 4032)     # 8 x (64 + P2) > int16
     with pytest.raises(TypeError):
         sgm_kernel.wta(part.to(torch.int64), 30000)
     with pytest.raises(ValueError):

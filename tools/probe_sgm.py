@@ -1,9 +1,12 @@
-"""What limits kernels 2d and 2e (chain_kernel in sgm_aggregate.cu): each is
-timed as built and in probe builds made from edited copies of the source.
-The probes' outputs are meaningless; only their times are read.
+"""What limits the SGM aggregation kernels 2d, 2e, 2f and 2g (chain_kernel
+and 2f's wta_tile_kernel in sgm_aggregate.cu): each is timed as built and
+in probe builds made from edited copies of the source.  The probes'
+outputs are meaningless; only their times are read.
 
   2d ahead N           2d's register ring holds N steps (built: 32)
   2e ahead N           2e's register ring holds N steps (built: 8)
+  up ahead N           the ring of 2f's and 2g's up pass holds N steps
+                       (built: 8, 2e's)
   shuffle min          m by five xor-shuffles (warp_min) instead of one
                        redux.sync
   no redux             m is the lane's own minimum: the warp reduction
@@ -12,8 +15,13 @@ The probes' outputs are meaningless; only their times are read.
                        memory reads after the first steps
   no stores            the stores are skipped (a runtime test that never
                        holds)
-  first launch only    2d: left->right into the scratch; 2e: both
-                       diagonal families
+  first launch only    2d: left->right into the scratch; 2e, 2f and 2g:
+                       both diagonal families (down or up)
+  2f without WTA       2f's up pass alone (its WTA kernel is not launched)
+  WTA tile N           2f's WTA block takes N pixels of a row (built: 128)
+  WTA staging only     2f's WTA blocks copy their row tiles into shared
+                       memory and stop (a runtime test that always holds)
+  WTA warps N          2f's WTA block has N warps (built: 8)
 
 Times go through the C entries at chip_smoke.py phase 3's full shape
 (768 x 1024, D 128, P1 10, P2 120, 8 paths) on the census cost of its
@@ -43,7 +51,11 @@ STORE = re.compile(r"out\.template store<VEC>\(")
 EDITS = {
     **{f"2d ahead {n}": [(r"kAhead2d = 32;", f"kAhead2d = {n};", 1)]
        for n in (16, 48, 64)},
-    **{f"2e ahead {n}": [(r"kAhead2e = 8;", f"kAhead2e = {n};", 1)]
+    **{f"2e ahead {n}": [(r"vertical_paths<kAhead2e>\(cost, hsum",
+                          f"vertical_paths<{n}>(cost, hsum", 1)]
+       for n in (4, 12, 16)},
+    **{f"up ahead {n}": [(r"vertical_paths<kAhead2e>\(cost, partial",
+                          f"vertical_paths<{n}>(cost, partial", 2)]
        for n in (4, 12, 16)},
     "shuffle min": [(r"__reduce_min_sync\(kFull, lm\)", "warp_min(lm)", 1)],
     "no redux": [(r"__reduce_min_sync\(kFull, lm\)", "lm", 1)],
@@ -53,8 +65,16 @@ EDITS = {
     "first launch only": [
         (r"return run_chains<kAhead2d, 1, false, false>\(a, scratch16, s\);",
          "return 0;", 1),
-        (r"return diag \? run_chains<kAhead2e, 2, true, false>\(a, "
+        (r"return diag \? run_chains<AHEAD, 2, true, false>\(a, "
          r"scratch16, s\)", "return diag ? 0", 1)],
+    "2f without WTA": [(r"return wta_tiles\(total, maps, h, w, dm, s\);",
+                        "return 0;", 1)],
+    **{f"WTA tile {n}": [(r"kWtaTile = 128;", f"kWtaTile = {n};", 1)]
+       for n in (64, 256)},
+    **{f"WTA warps {n}": [(r"kWtaWarps = 8;", f"kWtaWarps = {n};", 1)]
+       for n in (4, 16)},
+    "WTA staging only": [(r"__syncthreads\(\);\n", "__syncthreads();\n"
+                          "  if (h > 0) return;\n", 1)],
 }
 
 
@@ -109,14 +129,22 @@ def main() -> int:
     cost = sk.census_cost(torch.tensor(left, device=dev),
                           torch.tensor(right, device=dev), D)
     hsum = sk.sgm_horizontal(cost)
+    part = sk.sgm_partial(cost, hsum)
     scratch = torch.empty((2, H, W, D), dtype=torch.uint8, device=dev)
     out = torch.empty((H, W, D), dtype=torch.int16, device=dev)
-    vp = ctypes.c_void_p
+    maps = torch.empty((9, H, W), dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     calls = {   # kernel: (entry, argtypes, arguments without the stream)
-        "2d": ("sgm_horizontal_launch", [vp] * 3 + [ctypes.c_int] * 6 + [vp],
+        "2d": ("sgm_horizontal_launch", [vp] * 3 + [ci] * 6 + [vp],
                [cost, scratch[0], out, H, W, D, 10, 120, 0]),
-        "2e": ("sgm_partial_launch", [vp] * 5 + [ctypes.c_int] * 7 + [vp],
+        "2e": ("sgm_partial_launch", [vp] * 5 + [ci] * 7 + [vp],
                [cost, hsum, scratch[0], scratch[1], out, H, W, D, 10, 120,
+                1, 0]),
+        "2f": ("sgm_total_wta_launch", [vp] * 6 + [ci] * 7 + [vp],
+               [cost, part, scratch[0], scratch[1], out, maps, H, W, D, 10,
+                120, 1, 0]),
+        "2g": ("sgm_total_launch", [vp] * 5 + [ci] * 7 + [vp],
+               [cost, part, scratch[0], scratch[1], out, H, W, D, 10, 120,
                 1, 0]),
     }
     times = {}
