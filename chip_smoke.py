@@ -28,9 +28,15 @@ and the script exits non-zero:
      191, 200 (uint8 and int16 scratch) and 4031 (P1 40000), with 4 and
      8 paths, on D % 4 != 0, one row, one column, one pixel, W < 32,
      W < D, D = 4, 160 and 256, a misaligned cost volume, 2e on an hsum
-     and 2f / 2g on a partial of any sign, and timed at P2 = 200; the
-     bare products (bf16 torch.matmul, torch._int_mm) are timed as
-     yardsticks only;
+     and 2f / 2g on a partial of any sign, and timed at P2 = 200; 2c
+     and 2h also on the shapes and values their code paths branch on
+     (sgm_2c2h_cases: one row, one column, W < D, a partial last tile,
+     D = 4 .. 256, constant and 8-level images, int16 extremes, int32 and
+     float32 beyond 2^24 with ties and +-0.0, caps 16000 / 30000 / 1e9,
+     operands at an offset), 2h timed on int32 and float32 volumes too;
+     the bare products (bf16 torch.matmul, torch._int_mm), 2c's store
+     stream (torch.full) and 2h's c0 / best alone (torch.min) are timed
+     as yardsticks only;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
      scene with 4096 keypoints per image, with the knn2 launch count reset
      just before and read just after, and check the reconstruction against
@@ -129,6 +135,10 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_INT32 = 132 * 64 * 1.98e9
 PEAK_BYTES = 3.35e12
+# Population count issues at 16 results per SM a clock on compute
+# capability 9.0 (CUDA C++ Programming Guide, throughput of arithmetic
+# instructions), a quarter of the 32-bit integer rate.
+PEAK_POPC = 132 * 16 * 1.98e9
 
 
 def bound(ops, rate, nbytes):
@@ -142,8 +152,26 @@ def bound(ops, rate, nbytes):
 
 
 def bound_text(b):
+    popc = f", popc {b['popc_ms']:.4f}" if "popc_ms" in b else ""
     return (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; operations "
-            f"{b['ops_ms']:.4f}, bytes {b['bytes_ms']:.4f})")
+            f"{b['ops_ms']:.4f}{popc}, bytes {b['bytes_ms']:.4f})")
+
+
+def census_bound(H, W, D, nbytes):
+    """2c's bound: two 63-neighbour census transforms a pixel (252 32-bit
+    operations), and for each (x, d) with x >= d, which this input needs
+    (64 elsewhere), two xors and an add at the 32-bit integer rate and two
+    population counts at their own, a quarter of it; the max of the
+    integer, popc and byte terms.  pr2_bound_ms keeps PR 2's count, 252 H
+    W + 5 H W D 32-bit operations with no popc term."""
+    n_x = sum((W - d) * H for d in range(min(D, W)))   # elements with x >= d
+    b = bound(252 * H * W + 3 * n_x, PEAK_INT32, nbytes)
+    b["popc_ms"] = 2 * n_x / PEAK_POPC * 1e3
+    if b["popc_ms"] > b["bound_ms"]:
+        b["bound_ms"], b["bound_by"] = b["popc_ms"], "operations"
+    b["pr2_bound_ms"] = bound(252 * H * W + 5 * H * W * D, PEAK_INT32,
+                              nbytes)["bound_ms"]
+    return b
 
 
 def nbytes_of(*tensors):
@@ -645,6 +673,98 @@ def sgm_2d2g_cases():
     return n
 
 
+def sgm_2c2h_cases():
+    """2c and 2h bit-equal to their plain versions on the shapes and values
+    their code paths branch on.  2c: one row (no vertical context), one
+    column, one pixel, W < D, D = 4 and 37 (the scalar stores), 160 and
+    256, and W = 1000, not a multiple of the tile (a partial last tile);
+    on images with values below 0 and above 1, on a constant image, on
+    images of 8 levels (equal neighbours test the strict >), and on images
+    one float past a 16-byte boundary.  2h: D = 4, 37, 48, 160 and 256;
+    int16 volumes at -32768 and 32767, a flat pixel (best 0, c1 = c0), best
+    at 0 and at D - 1, ties; int32 volumes beyond +-2^24 with ties; float32
+    volumes beyond 2^24 with +0.0 / -0.0 ties; caps 16000, 30000 and 1e9;
+    each volume also at a storage offset (the scalar loads)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import sgm_kernel as sk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+
+    def at_offset(t):   # the same values one element past the allocation
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    n = 0
+    shapes = ((37, 61, 48), (37, 61, 37), (1, 61, 48), (37, 1, 48),
+              (1, 1, 48), (37, 20, 48), (45, 29, 4), (23, 31, 160),
+              (17, 19, 256), (9, 1000, 128))
+    for H, W, D in shapes:
+        images = {
+            "values in [-0.5, 1.5)": [rng.uniform(-0.5, 1.5, (H, W))
+                                      for _ in range(2)],
+            "8 levels": [rng.integers(0, 8, (H, W)) / 7 for _ in range(2)],
+            "constant": [np.full((H, W), 0.5)] * 2}
+        for what, (left, right) in images.items():
+            L = torch.tensor(left.astype(np.float32), device=dev)
+            R = torch.tensor(right.astype(np.float32), device=dev)
+            want = sk.census_cost_reference(L, R, D)
+            pairs = [("2c", sk.census_cost(L, R, D), want)]
+            if what == "8 levels":
+                pairs.append(("2c, images at an offset", sk.census_cost(
+                    at_offset(L), at_offset(R), D), want))
+            _check_equal(f"2c {H}x{W}x{D} {what}", pairs)
+            n += len(pairs)
+
+    def wta_pairs(label, vol, caps):
+        out = []
+        for cap in caps:
+            want = sk.wta_reference(vol, cap)
+            out += _map_pairs(f"{label} cap {cap}", sk.wta(vol, cap), want)
+            out += _map_pairs(f"{label} cap {cap} at an offset",
+                              sk.wta(at_offset(vol), cap), want)
+        return out
+
+    for D in (4, 37, 48, 128, 160, 256):
+        H, W = 13, 37
+        v16 = rng.integers(-32768, 32768, (H, W, D))
+        v16[0, 0] = 7                      # flat: best 0, c1 = c0
+        v16[0, 1] = -32768
+        v16[0, 2] = 32767
+        v16[1, :, 0] = -32768              # best at 0
+        v16[2, :, D - 1] = -32768          # best at D - 1
+        v16[3] = rng.integers(0, 4, (W, D))   # ties
+        i32 = rng.integers(-2 ** 30, 2 ** 30, (H, W, D))
+        i32[0, :, ::3] = -2 ** 29 - 1      # ties beyond 2^24
+        i32[1] = rng.integers(0, 3, (W, D)) * 2 ** 25
+        f32 = rng.integers(-3, 4, (H, W, D)) * 3.0e7
+        f32[0] = rng.uniform(-1, 1, (W, D))
+        f32 = f32.astype(np.float32)
+        f32[f32 == 0] = -0.0
+        f32[1, :, ::2] = 0.0               # +0.0 / -0.0 ties at the min
+        f32[1, :, 1::2] = -0.0
+        pairs = (wta_pairs(f"2h int16 D={D}", torch.tensor(
+                     v16.astype(np.int16), device=dev), (16000, 30000))
+                 + wta_pairs(f"2h int32 D={D}", torch.tensor(
+                     i32.astype(np.int32), device=dev), (30000, 10 ** 9))
+                 + wta_pairs(f"2h float32 D={D}", torch.tensor(
+                     f32, device=dev), (1e9, 16000.0)))
+        _check_equal(f"2h D={D}", pairs)
+        n += len(pairs) // len(sk.WTA_LEFT)
+    torch.cuda.synchronize()
+    print(f"  sgm 2c / 2h: {n} cases equal to plain (2c: shapes "
+          f"{', '.join('x'.join(map(str, sh)) for sh in shapes)}; values "
+          f"in [-0.5, 1.5), 8 levels, constant; images at an offset; 2h: "
+          f"D 4, 37, 48, 128, 160, 256; int16 extremes, flat, best at 0 "
+          f"and D - 1, ties; int32 beyond 2^24 with ties; float32 beyond "
+          f"2^24 with +-0.0 ties; caps 16000, 30000, 1e9; every volume "
+          f"also at an offset)", flush=True)
+    return n
+
+
 def compare_sgm(H, W, D, seed, label, time_it):
     """Kernels 2c-2h against their plain versions on the card, each fed the
     same inputs; every output must be equal (2h also on an int32 and a
@@ -685,16 +805,15 @@ def compare_sgm(H, W, D, seed, label, time_it):
     }
     # the bound of each kernel: its inputs read once and its outputs
     # written once, against an estimate of its 32-bit integer work per
-    # volume element (census: two 63-neighbour transforms per pixel and
-    # xor + popcount + add per disparity; a path: about 8 ops per element;
-    # WTA: about 6) at the card's 32-bit integer issue rate
+    # volume element (a path: about 8 ops per element; WTA: about 6) at
+    # the card's 32-bit integer issue rate; 2c's in census_bound
     vol = H * W * D
 
     def maps(m):
         return nbytes_of(*(t for _, t, _ in _map_pairs("", m, m)))
     io = {   # name: (input and output bytes, integer ops, of which path
         #        steps, which run two disparities per DPX 16x2 instruction)
-        "census_cost": (nbytes_of(L, R, cost_p), 252 * H * W + 5 * vol, 0),
+        "census_cost": (nbytes_of(L, R, cost_p), None, 0),
         "sgm_horizontal": (nbytes_of(cost_p, h_p), 17 * vol, 17 * vol),
         "sgm_partial": (nbytes_of(cost_p, h_p, part_p), 27 * vol, 27 * vol),
         "sgm_total_wta": (nbytes_of(cost_p, part_p) + maps((wl_p, wr_p)),
@@ -709,7 +828,8 @@ def compare_sgm(H, W, D, seed, label, time_it):
         torch.cuda.synchronize()
         _check_equal(label, _map_pairs(name, got, want))
         nbytes, ops, pair_ops = io[name]
-        b = bound(ops, PEAK_INT32, nbytes)
+        b = census_bound(H, W, D, nbytes) if name == "census_cost" \
+            else bound(ops, PEAK_INT32, nbytes)
         if pair_ops:
             # the path steps run two disparities per DPX 16x2 instruction:
             # at that rate their operation term halves (2f's WTA does not);
@@ -733,6 +853,12 @@ def compare_sgm(H, W, D, seed, label, time_it):
         torch.cuda.synchronize()
         _check_equal(label, _map_pairs(f"wta {what}", got,
                                        sk.wta_reference(vol, cap)))
+        if time_it and what != "right int16":
+            ms = min(cuda_time_ms(lambda: sk.wta(vol, cap))
+                     for _ in range(2))
+            out["wta"][3][f"{what}_ms"] = ms
+            print(f"  wta {H}x{W}x{D} {what} volume: kernel {ms:.3f} ms, "
+                  f"equal to plain", flush=True)
     del others
     # the disparity after the torch tail, kernel maps vs plain maps
     wl, wr = sk.sgm_total_wta(cost_p, part_p)
@@ -780,9 +906,22 @@ def compare_sgm(H, W, D, seed, label, time_it):
             if "pair_bound_ms" in b:
                 share += (f", {100 * b['pair_bound_ms'] / out[name][1]:.1f} % "
                           f"of the pair-rate bound {b['pair_bound_ms']:.4f} ms")
+            if "pr2_bound_ms" in b:
+                share += (f"; PR 2's count {b['pr2_bound_ms']:.4f} ms, "
+                          f"{100 * b['pr2_bound_ms'] / out[name][1]:.1f} %")
             print(f"  {name} {H}x{W}x{D}: kernel {k1:.3f}/{k2:.3f} ms, "
                   f"plain {p1:.3f}/{p2:.3f} ms, {bound_text(b)}, {share}",
                   flush=True)
+        # yardsticks, not the same function: 2c's store stream alone, and
+        # c0 / best alone of 2h's total
+        yard = {"census_cost": ("torch.full of 64", lambda: torch.full(
+                    (H, W, D), 64, dtype=torch.uint8, device=dev)),
+                "wta": ("torch.min over d",
+                        lambda: torch.min(total_p, dim=-1))}
+        for name, (what, fn) in yard.items():
+            ms = min(cuda_time_ms(fn) for _ in range(2))
+            out[name][3]["yardstick_ms"] = ms
+            print(f"  {name} yardstick ({what}): {ms:.3f} ms", flush=True)
     return out
 
 
@@ -804,46 +943,66 @@ def ptxas_registers(log):
     return out
 
 
-SGM_FUNCTIONS = (   # label, pattern of the mangled name
-    ("2d chain_kernel (K 4, ring 32, vector: D = 128)",
+SGM_FUNCTIONS = (   # label, library, pattern of the mangled name
+    ("2c census_cost_kernel (vector: D % 16 == 0)", "sgm_census",
+     r"census_cost_kernelILb1E"),
+    ("2c census_cost_kernel (scalar)", "sgm_census",
+     r"census_cost_kernelILb0E"),
+    ("2d chain_kernel (K 4, ring 32, vector: D = 128)", "sgm_aggregate",
      r"chain_kernelILi4ELi32ELb1E"),
-    ("2e/2f/2g chain_kernel (K 4, ring 8, vector: D = 128)",
+    ("2e/2f/2g chain_kernel (K 4, ring 8, vector: D = 128)", "sgm_aggregate",
      r"chain_kernelILi4ELi8ELb1E"),
-    ("2d-2g chain_kernel (K 2, scalar: D = 37)",
+    ("2d-2g chain_kernel (K 2, scalar: D = 37)", "sgm_aggregate",
      r"chain_kernelILi2ELi\d+ELb0E"),
     ("2d-2g chain_kernel (K 8, ring 16 / 4, vector: D = 256)",
-     r"chain_kernelILi8ELi\d+ELb1E"),
-    ("2f wta_tile_kernel (2 words a lane, vector: D = 128)",
+     "sgm_aggregate", r"chain_kernelILi8ELi\d+ELb1E"),
+    ("2f wta_tile_kernel (2 words a lane, vector: D = 128)", "sgm_aggregate",
      r"wta_tile_kernelILi2ELb1E"),
-    ("2f wta_tile_kernel (D = 37 .. 256)", r"wta_tile_kernelILi\dELb\dE"),
+    ("2f wta_tile_kernel (D = 37 .. 256)", "sgm_aggregate",
+     r"wta_tile_kernelILi\dELb\dE"),
+    ("2h wta_stream_kernel (int16, K 4, vector: D = 128)", "sgm_aggregate",
+     r"wta_stream_kernelIsLi4ELb1E"),
+    ("2h wta_stream_kernel (int32 / float32, vector)", "sgm_aggregate",
+     r"wta_stream_kernelI[if]Li\dELb1E"),
+    ("2h wta_stream_kernel (scalar)", "sgm_aggregate",
+     r"wta_stream_kernelI\w+Li\dELb0E"),
 )
 
 
 def sgm_registers():
-    """Print the registers and spills of the SGM path kernels' builds
-    (when this process built them: a library found already built has no
-    build log), and the shared memory of 2f's WTA tiles."""
+    """Print the registers and spills of the SGM kernels' builds (when
+    this process built them: a library found already built has no build
+    log), 2c's shared memory a block and that of 2f's WTA tiles."""
     import ctypes
     import re
     from metricsfm_tpu_torch.ops import cuda_build
+    fn = cuda_build.load_library("sgm_census").sgm_census_cost_tile
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    nbytes = ctypes.c_int()
+    tile = fn(ctypes.byref(nbytes))
+    print(f"  2c census_cost_kernel: {tile} pixels a block, "
+          f"{nbytes.value} B of static shared memory", flush=True)
     fn = cuda_build.load_library("sgm_aggregate").sgm_total_wta_tile
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     tiles = []
     for D in (4, 37, 48, 128, 160, 256):
-        nbytes = ctypes.c_int()
         tiles.append(f"D {D}: {fn(D, ctypes.byref(nbytes))} pixels, "
                      f"{nbytes.value} B")
     print(f"  2f wta_tile_kernel dynamic shared memory a block: "
           f"{'; '.join(tiles)}", flush=True)
-    log = cuda_build.build_info["sgm_aggregate"]["log"]
-    if not log:
-        print("  registers: sgm_aggregate was already built, no build log",
-              flush=True)
-        return
-    regs = ptxas_registers(log)
-    for label, key in SGM_FUNCTIONS:
-        hits = [v for k, v in regs.items() if re.search(key, k)]
+    regs = {}
+    for lib in ("sgm_census", "sgm_aggregate"):
+        log = cuda_build.build_info[lib]["log"]
+        if not log:
+            print(f"  registers: {lib} was already built, no build log",
+                  flush=True)
+        regs[lib] = ptxas_registers(log)
+    for label, lib, key in SGM_FUNCTIONS:
+        if not cuda_build.build_info[lib]["log"]:
+            continue
+        hits = [v for k, v in regs[lib].items() if re.search(key, k)]
         if not hits:
             raise AssertionError(f"no ptxas line for {label}")
         print(f"  registers {label}: {min(r for r, _ in hits)}-"
@@ -858,6 +1017,7 @@ def sgm_phase():
     ragged = compare_sgm(37, 61, 48, seed=1, label="ragged 37x61x48",
                          time_it=False)
     sgm_2d2g_cases()
+    sgm_2c2h_cases()
     full = compare_sgm(768, 1024, 128, seed=0, label="768x1024x128",
                        time_it=True)
     rows = []
@@ -1292,8 +1452,8 @@ def kernel_label(name):
     return m.group(1) if m else name
 
 
-SGM_DEVICE_NAMES = ("census_kernel", "cost_kernel", "chain_kernel", "wta_tile_kernel",
-                    "wta_maps_kernel")
+SGM_DEVICE_NAMES = ("census_cost_kernel", "chain_kernel", "wta_tile_kernel",
+                    "wta_stream_kernel")
 
 
 def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):

@@ -80,17 +80,29 @@
 // integer volume, 1e9 for a float one in ops/sgm.winner_takes_all); the
 // TPU kernel's 16-channel packing, its 8000-valued D pads and the
 // (8, 128) padding are gone: disparities >= D do not exist.  It reads the
-// volume once (200 MB at 768 x 1024 x 128 int16, 60 us at 3.35 TB/s) and
-// is bound by the warp reductions per pixel (3 x 5 shuffles).
+// volume once (201 MB at 768 x 1024 x 128 int16, 0.060 ms at 3.35 TB/s)
+// and streams it (wta_stream_kernel): a warp takes 32 pixels, one a step,
+// each pixel's D values across its lanes (8 bytes a lane at D = 128
+// int16), with the loads kWta2hRing bytes a lane ahead in registers.
+// Every reduction is one redux.sync over the whole warp: c0 and best over
+// a key of value and d for int16 (two for int32 / float32), c1 one more;
+// cm / cc / cp come by shuffle from the lanes that hold them, and each
+// map leaves as 32 consecutive words.  One pixel a warp, not the 16-byte
+// loads of two pixels a warp: redux.sync gives one result a warp, and a
+// per-half-warp member mask compiles to a serialized collective loop
+// (tools/probe_sgm.py and the SASS of that design: 0.141-0.148 ms).  So
+// the bytes bound it, with the per-pixel instructions beside them
+// (tools/probe_sgm.py: loads only, warps a block, ring bytes).
 
 #include <cuda_runtime.h>
 #include <limits.h>
-#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kWarps = 4;             // chains (2h: pixels) per block
+constexpr int kWarps = 4;             // chains per block
 constexpr int kC1Cap = 16000;
 constexpr int kRightOutOfRange = 30000;
 constexpr unsigned kFull = 0xffffffffu;
@@ -101,34 +113,12 @@ __device__ __forceinline__ T vmin(T a, T b) {
 }
 
 template <typename T>
-__device__ __forceinline__ T type_max();
-template <>
-__device__ __forceinline__ int type_max<int>() { return INT_MAX; }
-template <>
-__device__ __forceinline__ float type_max<float>() { return INFINITY; }
-
-template <typename T>
 __device__ __forceinline__ T warp_min(T v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = vmin(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
-
-// Run the statement with the compile-time K = ceil(dm / 32) disparities
-// per lane; a D above 256 returns cudaErrorInvalidValue from the caller.
-#define SGM_DISPATCH_K(dm, ...)                              \
-  switch (((dm) + 31) / 32) {                                \
-    case 1: { constexpr int K = 1; __VA_ARGS__; } break;     \
-    case 2: { constexpr int K = 2; __VA_ARGS__; } break;     \
-    case 3: { constexpr int K = 3; __VA_ARGS__; } break;     \
-    case 4: { constexpr int K = 4; __VA_ARGS__; } break;     \
-    case 5: { constexpr int K = 5; __VA_ARGS__; } break;     \
-    case 6: { constexpr int K = 6; __VA_ARGS__; } break;     \
-    case 7: { constexpr int K = 7; __VA_ARGS__; } break;     \
-    case 8: { constexpr int K = 8; __VA_ARGS__; } break;     \
-    default: return (int)cudaErrorInvalidValue;              \
-  }
 
 // ---- every path family: chains whose loads run ahead of the dependent
 // steps ----
@@ -589,72 +579,296 @@ wta_tile_kernel(const int16_t* __restrict__ total, int h, int w, int dm,
                               pix0);
 }
 
-// c0 = min, best = smallest d reaching it, c1 = min over |d - best| > 1
-// capped at `cap`, of one pixel's values spread K per lane (lane values
-// at d >= dm are not disparities and are never read).
-template <typename T, int K>
-__device__ __forceinline__ void wta3(const T v[K], int d0, int dm, T cap,
-                                     T& c0, int& best, T& c1) {
-  bool on[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) on[k] = d0 + k < dm;
-  T m = type_max<T>();
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (on[k]) m = vmin(m, v[k]);
-  c0 = warp_min(m);
-  int b = INT_MAX;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (on[k] && v[k] == c0) b = min(b, d0 + k);
-  best = warp_min(b);
-  T s = cap;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (on[k] && abs(d0 + k - best) > 1) s = vmin(s, v[k]);
-  c1 = warp_min(s);
+// ---- 2h: the left WTA maps of any volume, streamed ----
+
+constexpr int kWta2hWarps = 4;   // warps a block, 32 pixels a warp
+constexpr int kWta2hRing = 32;   // bytes of loads a lane keeps in flight
+
+// A value of the volume as an int that orders as the value does: int16
+// and int32 as they are; a float's bits, -0.0 made +0.0 first (an integer
+// test, which no build flag folds away) and the bits of a negative float
+// xor 0x7fffffff.
+__device__ __forceinline__ int order_key(int v) { return v; }
+__device__ __forceinline__ int order_key(float f) {
+  int b = __float_as_int(f);
+  if (b == INT_MIN) b = 0;
+  return b >= 0 ? b : b ^ INT_MAX;
+}
+__device__ __forceinline__ float key_value(int k, float) {
+  return __int_as_float(k >= 0 ? k : k ^ INT_MAX);
+}
+__device__ __forceinline__ int key_value(int k, int) { return k; }
+
+template <typename T>
+__device__ __forceinline__ T from_bits(uint32_t u) {
+  if constexpr (std::is_same<T, float>::value)
+    return __int_as_float((int)u);
+  else
+    return (T)u;
+}
+template <typename T>
+__device__ __forceinline__ uint32_t to_bits(T v) {
+  if constexpr (std::is_same<T, float>::value)
+    return (uint32_t)__float_as_int(v);
+  else
+    return (uint32_t)(int)v;
 }
 
-// 2h: one warp per pixel of an (n, dm) volume of T, compared in C (int for
-// the integer volumes, float for float32).  vals (5, n) of C: c0, c1, cm,
-// cc, cp; best (n) int32.
-template <typename T, typename C, int K>
-__global__ void __launch_bounds__(kWarps * 32)
-wta_maps_kernel(const T* __restrict__ vol, size_t n, int dm, C cap,
-                C* __restrict__ vals, int* __restrict__ best_out) {
-  const size_t pix = (size_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (pix >= n) return;   // warp-uniform
-  const int d0 = lane * K;
-  const T* t = vol + pix * dm;
-  C v[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = d0 + k < dm ? (C)t[d0 + k] : cap;
-  C c0, c1;
-  int best;
-  wta3<C, K>(v, d0, dm, cap, c0, best, c1);
-  if (lane == 0) {
-    const int bm = min(max(best, 1), dm - 2);
-    vals[pix] = c0;
-    vals[n + pix] = c1;
-    vals[2 * n + pix] = (C)t[bm - 1];
-    vals[3 * n + pix] = (C)t[bm];
-    vals[4 * n + pix] = (C)t[bm + 1];
-    best_out[pix] = best;
+template <int K, typename F>
+__device__ __forceinline__ void unroll(F&& f) {
+  if constexpr (K > 0) {
+    unroll<K - 1>(f);
+    f(std::integral_constant<int, K - 1>());
   }
+}
+
+// The K values of T a lane holds of one pixel, disparities lane K .. lane
+// K + K - 1: with VEC the raw bytes of one aligned vector load, else one
+// value a word.  Values at d >= D hold the largest value of T (int16
+// 0x7fff, int32 INT_MAX, float32 the bits 0x7fffffff, whose order key is
+// INT_MAX): such a value never decides c0, best or c1, as its d is past
+// every real one and c1 <= cap.
+template <typename T, int K, bool VEC>
+struct Lane {
+  static constexpr int kBytes = K * (int)sizeof(T);
+  static constexpr int kWords = VEC ? (kBytes + 3) / 4 : K;
+  uint32_t w[kWords];
+  template <int J>
+  __device__ __forceinline__ T get() const {
+    if constexpr (VEC && sizeof(T) == 2)
+      return (T)(w[J >> 1] >> (16 * (J & 1)));
+    else
+      return from_bits<T>(w[J]);
+  }
+  // value j (runtime, < K)
+  __device__ __forceinline__ T pick(int j) const {
+    T r = get<0>();
+    unroll<K>([&](auto J) {
+      if (decltype(J)::value > 0 && j == decltype(J)::value)
+        r = get<decltype(J)::value>();
+    });
+    return r;
+  }
+  __device__ __forceinline__ void fill() {
+    const uint32_t top = sizeof(T) == 2 ? (VEC ? 0x7fff7fffu : 0x7fffu)
+                                        : 0x7fffffffu;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = top;
+  }
+  // this lane's values of the pixel at p (n = D - d0 of them are real)
+  __device__ __forceinline__ void load(const T* p, int n) {
+    if constexpr (VEC) {
+      if (n <= 0) return;   // every value past D: the fill stays
+      if constexpr (kBytes == 2) {
+        w[0] = *(const uint16_t*)p;
+      } else if constexpr (kBytes == 4) {
+        w[0] = *(const uint32_t*)p;
+      } else if constexpr (kBytes == 8) {
+        const uint2 v = *(const uint2*)p;
+        w[0] = v.x;
+        w[1] = v.y;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBytes / 16; ++i) {
+          const uint4 v = ((const uint4*)p)[i];
+          w[4 * i] = v.x;
+          w[4 * i + 1] = v.y;
+          w[4 * i + 2] = v.z;
+          w[4 * i + 3] = v.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (j < n) w[j] = to_bits(p[j]);
+    }
+  }
+};
+
+// Steps of loads a lane keeps in flight: kWta2hRing bytes, 1 to 16 steps.
+template <typename T, int K>
+__host__ __device__ constexpr int wta2h_ahead() {
+  const int a = kWta2hRing / (K * (int)sizeof(T));
+  return a < 1 ? 1 : a > 16 ? 16 : a;
+}
+
+// 2h: warp w takes the 32 pixels 32 w .. 32 w + 31 of an (n, dm) volume of
+// T, one pixel a step, its D values across the warp (K a lane, one vector
+// load with VEC: D % K == 0 and an aligned volume; else K scalar loads).
+// The loads run wta2h_ahead steps ahead in a register ring.  Each
+// reduction is one redux.sync over the whole warp: for int16 c0 and best
+// in one over the key (v + 32768) * 256 + d (one IMAD; the smallest key is
+// the smallest v, ties to the smallest d); for int32 and float32 (whose
+// value does not fit beside d) one over the order key and one over d
+// where the key is c0; c1 one more over the values at |d - best| > 1,
+// capped at cap.  best is then the same in every lane, so the lanes
+// holding clip(best, 1, dm - 2) -1 / 0 / +1 are known to all: one shuffle
+// each brings cm / cc / cp.  Lane t keeps step t's results, and at the end
+// the lanes store each map as 32 consecutive words.  vals (5, n) of OutT:
+// c0, c1, cm, cc, cp; best (n).
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(kWta2hWarps * 32)
+wta_stream_kernel(const T* __restrict__ vol, long long n, int dm, float cap,
+                  typename std::conditional<std::is_same<T, float>::value,
+                                            float, int>::type* __restrict__
+                      vals,
+                  int* __restrict__ best_out) {
+  using OutT = typename std::conditional<std::is_same<T, float>::value,
+                                         float, int>::type;
+  using L = Lane<T, K, VEC>;
+  constexpr int A = wta2h_ahead<T, K>();
+  const int lane = threadIdx.x & 31;
+  const long long base =
+      ((long long)blockIdx.x * kWta2hWarps + (threadIdx.x >> 5)) * 32;
+  if (base >= n) return;   // warp-uniform
+  const int last = (int)min(32LL, n - base);   // pixels of this warp
+  const int d0 = lane * K;
+  const int real = dm - d0;                    // values of this lane < D
+  const T* src = vol + base * dm + d0;
+  const int cap_key = std::is_same<T, float>::value ? order_key(cap)
+                                                    : (int)cap;
+
+  L ring[A];
+#pragma unroll
+  for (int s = 0; s < A; ++s) ring[s].fill();
+  auto fetch = [&](L& st, int t) {   // warp-uniform test
+    if (t < last) st.load(src + (long long)t * dm, real);
+  };
+
+  int o_c0 = 0, o_best = 0, o_c1 = 0;   // pixel `lane`'s results (keys)
+  OutT o_m = 0, o_c = 0, o_p = 0;
+  auto step = [&](const L& st, int t) {
+    const bool keeps = lane == t;
+    int best;
+    if constexpr (sizeof(T) == 2) {
+      const unsigned kd = (32768u << 8) + (unsigned)d0;
+      unsigned key = UINT_MAX;
+      unroll<K>([&](auto J) {
+        key = min(key, (unsigned)((int)st.template get<decltype(J)::value>()
+                                  * 256) + kd + decltype(J)::value);
+      });
+      key = __reduce_min_sync(kFull, key);
+      best = (int)(key & 0xffu);
+      if (keeps) {
+        o_c0 = (int)(key >> 8) - 32768;
+        o_best = best;
+      }
+    } else {
+      int m = INT_MAX;
+      unroll<K>([&](auto J) {
+        m = min(m, order_key(st.template get<decltype(J)::value>()));
+      });
+      const int c0 = __reduce_min_sync(kFull, m);
+      int b = INT_MAX;
+      unroll<K>([&](auto J) {
+        if (order_key(st.template get<decltype(J)::value>()) == c0)
+          b = min(b, d0 + decltype(J)::value);
+      });
+      best = __reduce_min_sync(kFull, b);
+      if (keeps) {
+        o_c0 = c0;
+        o_best = best;
+      }
+    }
+    int c1 = cap_key;
+    unroll<K>([&](auto J) {
+      if ((unsigned)(d0 + decltype(J)::value - best + 1) > 2u)
+        c1 = min(c1, order_key(st.template get<decltype(J)::value>()));
+    });
+    c1 = __reduce_min_sync(kFull, c1);
+    if (keeps) o_c1 = c1;
+    // cm / cc / cp: disparity d is value d % K of lane d / K
+    const int bm = min(max(best, 1), dm - 2);
+    OutT vm, vc, vp;
+    if constexpr (VEC && sizeof(T) == 2 && K >= 2) {
+      // int16 pairs: bm - 1 .. bm + 1 lie in the two words (bm - 1) / 2
+      // and the next, one shuffle each
+      const int wa = (bm - 1) >> 1, wb = wa + 1;
+      constexpr int WL = K / 2;   // words a lane
+      auto word_at = [&](int wi) {
+        uint32_t r = st.w[0];
+        unroll<WL>([&](auto I) {
+          if (decltype(I)::value > 0 && wi % WL == decltype(I)::value)
+            r = st.w[decltype(I)::value];
+        });
+        return __shfl_sync(kFull, r, wi / WL);
+      };
+      const uint32_t a = word_at(wa), b = word_at(wb);
+      const bool odd = (bm - 1) & 1;   // bm - 1 is a's high half
+      auto half = [](uint32_t v, bool hi) {
+        return hi ? (int)v >> 16 : (int)(int16_t)v;
+      };
+      vm = half(a, odd);
+      vc = odd ? half(b, false) : half(a, true);
+      vp = half(b, odd);
+    } else {
+      vm = __shfl_sync(kFull, (OutT)st.pick((bm - 1) % K), (bm - 1) / K);
+      vc = __shfl_sync(kFull, (OutT)st.pick(bm % K), bm / K);
+      vp = __shfl_sync(kFull, (OutT)st.pick((bm + 1) % K), (bm + 1) / K);
+    }
+    if (keeps) {
+      o_m = vm;
+      o_c = vc;
+      o_p = vp;
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < A; ++s) fetch(ring[s], s);
+  for (int t0 = 0; t0 < 32; t0 += A) {
+#pragma unroll
+    for (int s = 0; s < A; ++s) {
+      step(ring[s], t0 + s);
+      fetch(ring[s], t0 + s + A);
+    }
+  }
+  const long long pix = base + lane;
+  if (lane < last) {
+    vals[pix] = key_value(o_c0, OutT());
+    vals[n + pix] = key_value(o_c1, OutT());
+    vals[2 * n + pix] = o_m;
+    vals[3 * n + pix] = o_c;
+    vals[4 * n + pix] = o_p;
+    best_out[pix] = o_best;
+  }
+}
+
+// wta_stream_kernel with K = the power of two >= ceil(dm / 32) values a
+// lane and the vector loads where D % K == 0 and the volume is aligned.
+template <typename T>
+int wta_stream(const void* vol, void* vals, void* best, long long n, int dm,
+               float cap, cudaStream_t s) {
+  const int k0 = (dm + 31) / 32;
+  const int k = k0 <= 1 ? 1 : k0 <= 2 ? 2 : k0 <= 4 ? 4 : 8;
+  const bool vec = dm % k == 0 && (uintptr_t)vol % 16 == 0;
+  const unsigned blocks =
+      (unsigned)((n + 32 * kWta2hWarps - 1) / (32 * kWta2hWarps));
+  using OutT = typename std::conditional<std::is_same<T, float>::value,
+                                         float, int>::type;
+  const T* v = (const T*)vol;
+  OutT* o = (OutT*)vals;
+  int* b = (int*)best;
+#define SGM_WTA2H(KK)                                                       \
+  case KK:                                                                  \
+    if (vec)                                                                \
+      wta_stream_kernel<T, KK, true><<<blocks, kWta2hWarps * 32, 0, s>>>(   \
+          v, n, dm, cap, o, b);                                             \
+    else                                                                    \
+      wta_stream_kernel<T, KK, false><<<blocks, kWta2hWarps * 32, 0, s>>>(  \
+          v, n, dm, cap, o, b);                                             \
+    break;
+  switch (k) {
+    SGM_WTA2H(1)
+    SGM_WTA2H(2)
+    SGM_WTA2H(4)
+    SGM_WTA2H(8)
+  }
+#undef SGM_WTA2H
+  return (int)cudaGetLastError();
 }
 
 unsigned warp_blocks(size_t n_warps) {
   return (unsigned)((n_warps + kWarps - 1) / kWarps);
-}
-
-template <typename T, typename C>
-int wta_maps(const void* vol, void* vals, void* best, size_t n, int dm,
-             C cap, cudaStream_t s) {
-  SGM_DISPATCH_K(dm, wta_maps_kernel<T, C, K><<<warp_blocks(n), kWarps * 32,
-                                                0, s>>>(
-      (const T*)vol, n, dm, cap, (C*)vals, (int*)best));
-  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int h, int w, int dm) {
@@ -862,12 +1076,12 @@ extern "C" int sgm_wta_launch(const void* vol, void* vals, void* best, int h,
                               int w, int dm, int dtype, float cap,
                               void* stream) {
   if (bad_shape(h, w, dm)) return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)h * w;
+  const long long n = (long long)h * w;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return wta_maps<int16_t, int>(vol, vals, best, n, dm, (int)cap, s);
-    case 1: return wta_maps<int32_t, int>(vol, vals, best, n, dm, (int)cap, s);
-    case 2: return wta_maps<float, float>(vol, vals, best, n, dm, cap, s);
+    case 0: return wta_stream<int16_t>(vol, vals, best, n, dm, cap, s);
+    case 1: return wta_stream<int32_t>(vol, vals, best, n, dm, cap, s);
+    case 2: return wta_stream<float>(vol, vals, best, n, dm, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

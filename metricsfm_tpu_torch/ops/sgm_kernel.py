@@ -287,7 +287,10 @@ def _launch(lib_name, fn_name, dev, ptrs, scalars):
 
 
 def census_cost(left, right, max_disp: int):
-    """Kernel 2c: (H, W) float32 left/right -> (H, W, D) uint8 volume."""
+    """Kernel 2c: (H, W) float32 left/right -> (H, W, D) uint8 volume.  On
+    the card one launch builds both census transforms in shared memory, a
+    row tile at a time, and writes the volume 16 bytes a store; it needs no
+    scratch beyond the volume it returns."""
     if left.dim() != 2 or left.dtype != torch.float32 \
             or right.shape != left.shape or right.dtype != torch.float32:
         raise TypeError("left and right must be (H, W) float32 of one shape")
@@ -301,10 +304,9 @@ def census_cost(left, right, max_disp: int):
     if dev.type == "cpu":
         return census_cost_reference(left, right, max_disp)
     H, W = left.shape
-    words = torch.empty((4, H, W), dtype=torch.int32, device=dev)
     vol = torch.empty((H, W, max_disp), dtype=torch.uint8, device=dev)
     _launch("sgm_census", "sgm_census_cost_launch", dev,
-            (left, right, words, vol), (H, W, max_disp))
+            (left, right, vol), (H, W, max_disp))
     census_cost.launches += 1
     return vol
 
@@ -441,7 +443,9 @@ def wta(vol, c1_cap):
     """Kernel 2h: the WTA_LEFT maps (c0, best, c1, cm, cc, cp) of an
     (H, W, D) int16, int32 or float32 volume, c1 capped at `c1_cap`.
     Returns a dict of (H, W) maps: int32 for an integer volume; float32
-    but an int32 `best` for a float32 one."""
+    but an int32 `best` for a float32 one.  On the card one launch streams
+    the volume once, 32 pixels a warp; a float c0 or c1 of zero comes back
+    as +0.0 (a -0.0 ties with it, as in argmin)."""
     _check_volume("vol", vol, tuple(_WTA_DTYPES))
     floating = vol.is_floating_point()
     if not floating and c1_cap != int(c1_cap):

@@ -1,5 +1,5 @@
 """The probe builds of tools/probe_sgm.py still make the edits they claim
-on the current kernel source (the builds and their times need the card)."""
+on the current kernel sources (the builds and their times need the card)."""
 import importlib.util
 import os
 import re
@@ -12,22 +12,45 @@ _spec = importlib.util.spec_from_file_location(
 probe = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(probe)
 
-with open(os.path.join(probe.cuda_build.CSRC, f"{probe.LIB}.cu")) as _f:
-    SRC = _f.read()
+
+def _source(lib):
+    with open(os.path.join(probe.cuda_build.CSRC, f"{lib}.cu")) as f:
+        return f.read()
+
+
+SRCS = {lib: _source(lib) for lib in (probe.LIB, probe.CENSUS)}
+SRC = SRCS[probe.LIB]
+
+
+def _between(src, start, end):
+    return src[src.index(start):src.index(end)]
+
+
+# 2h's kernel and its launch helper; chain_kernel (2d-2g)
+WTA_2H = _between(SRC, "// ---- 2h: the left WTA maps", "bool bad_shape(")
+CHAIN = _between(SRC, "template <int K, int AHEAD, bool VEC, typename S",
+                 "// ---- 2f's WTA")
 
 
 @pytest.mark.parametrize("variant", sorted(probe.EDITS))
 def test_probe_edit_applies_and_keeps_the_entries(variant):
+    src = SRCS[probe.lib_of(variant)]
     out = probe.probe_source(variant)
-    assert out != SRC
-    for entry in re.findall(r'extern "C" int (\w+)', SRC):
+    assert out != src
+    for entry in re.findall(r'extern "C" int (\w+)', src):
         assert f'extern "C" int {entry}' in out
-    # only the aggregation kernels 2d-2g and their launches change: 2h's
-    # wta_maps_kernel is the same text
-    start = SRC.index("// 2h: one warp per pixel")
-    end = SRC.index("unsigned warp_blocks(")
-    assert "wta_maps_kernel(" in SRC[start:end]
-    assert SRC[start:end] in out
+    if variant.startswith("2c "):
+        # 2c's edits are of sgm_census.cu: chain_kernel and 2h build as
+        # they are
+        assert probe.lib_of(variant) == probe.CENSUS
+        assert "chain_kernel" not in out
+    elif variant.startswith("2h "):
+        # 2h's edits leave chain_kernel the same text
+        assert "wta_stream_kernel(" in WTA_2H
+        assert CHAIN in out
+    else:
+        # the 2d-2g edits leave 2h's kernel the same text
+        assert WTA_2H in out
 
 
 def test_probe_edits_cut_what_they_name():
@@ -48,6 +71,22 @@ def test_probe_edits_cut_what_they_name():
     assert "vertical_paths<kAhead2e>(cost, hsum" in up
     assert "return wta_tiles(" not in probe.probe_source("2f without WTA")
     assert "kWtaTile = 256;" in probe.probe_source("WTA tile 256")
+    # 2h
+    assert "if (dm < 0) step(ring[s], t0 + s);" in probe.probe_source(
+        "2h loads only")
+    assert "kWta2hWarps = 8;" in probe.probe_source("2h warps 8")
+    assert "kWta2hWarps = 16;" in probe.probe_source("2h warps 16")
+    assert "kWta2hRing = 16;" in probe.probe_source("2h ring 16")
+    assert "kWta2hRing = 64;" in probe.probe_source("2h ring 64")
+    # 2c
+    store = probe.probe_source("2c store only")
+    assert store.count("if (h < 0)") == 3 and "if (w > 0) {" in store
+    assert "__popc" not in probe.probe_source("2c no popc")
+    assert "h < 0 && p < np;" in probe.probe_source("2c census only")
+    assert "kTile = 64;" in probe.probe_source("2c tile 64")
+    assert "kTile = 128;" in probe.probe_source("2c tile 128")
+    assert "__stcs((uint4*)out, make_uint4(" in probe.probe_source(
+        "2c streaming stores")
 
 
 def test_probe_edit_that_no_longer_matches_raises(monkeypatch):

@@ -3,7 +3,8 @@
 CPU tensors run each kernel's plain version (ops/sgm_kernel), so these
 tests pin the contract the CUDA kernels are held to on the card:
   * census + cost volume (2c) equal to the JAX XLA functions and to the
-    Pallas census_cost_pallas in interpret mode (exact integers);
+    Pallas census_cost_pallas in interpret mode (exact integers), also on
+    one row, one column, W < D, D = 4, a constant and 8-level images;
   * the horizontal (2d), partial (2e) and total (2f) path sums equal to a
     literal per-pixel recurrence, and aggregate_paths to the JAX scan;
   * 2f's wrapper (P2 120 and 200, a partial of any sign) equal to that
@@ -76,6 +77,44 @@ def test_cost_volume_matches_jax_and_pallas(rng, H, W, D):
     """Exact against the XLA volume and the fused Pallas kernel cropped to
     (H, W, D) (interpret mode)."""
     L, R = _images(rng, H, W)
+    got = sgm_kernel.census_cost(torch.tensor(L), torch.tensor(R), D)
+    assert got.dtype == torch.uint8 and got.shape == (H, W, D)
+    got = got.numpy().astype(np.int64)
+    want = np.asarray(jsgm.matching_cost_volume(
+        jsgm.census_transform(jnp.asarray(L)),
+        jsgm.census_transform(jnp.asarray(R)), D)).astype(np.int64)
+    np.testing.assert_array_equal(got, want)
+    pallas = np.asarray(jk.census_cost_pallas(jnp.asarray(L), jnp.asarray(R),
+                                              D, interpret=True))
+    np.testing.assert_array_equal(got, pallas[:H, :W, :D].astype(np.int64))
+
+
+EDGE_IMAGES = {
+    # name: (H, W, D, image maker), the cases 2c's kernel branches on
+    "one row": (1, 29, 24, "uniform"),
+    "one column": (19, 1, 24, "uniform"),
+    "W < D": (7, 12, 24, "uniform"),
+    "D = 4": (9, 17, 4, "uniform"),
+    "constant": (9, 17, 16, "constant"),
+    "8 levels": (11, 23, 20, "levels"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_IMAGES))
+def test_cost_volume_edge_cases_match_jax_and_pallas(rng, case):
+    """2c exact against the XLA volume and the Pallas kernel (interpret
+    mode) on one row (no vertical context), one column, W < D, D = 4, a
+    constant image and 8-level images (equal neighbours test the strict
+    >), with values below 0 and above 1."""
+    H, W, D, kind = EDGE_IMAGES[case]
+    if kind == "uniform":
+        L, R = (rng.uniform(-0.5, 1.5, (H, W)).astype(np.float32)
+                for _ in range(2))
+    elif kind == "constant":
+        L = R = np.full((H, W), 0.5, np.float32)
+    else:
+        L, R = ((rng.integers(0, 8, (H, W)) / 7).astype(np.float32)
+                for _ in range(2))
     got = sgm_kernel.census_cost(torch.tensor(L), torch.tensor(R), D)
     assert got.dtype == torch.uint8 and got.shape == (H, W, D)
     got = got.numpy().astype(np.int64)

@@ -1,6 +1,8 @@
 """The SGM volume path of the PyTorch port against the JAX package, on the
 CPU: kernels 2g (sgm_total, also against the literal recurrence at P2
-120 and 200 and on a partial of any sign) and 2h (wta), `aggregate_paths` and
+120 and 200 and on a partial of any sign) and 2h (wta, also against a
+per-pixel brute force on int16 extremes, int32 beyond 2^24 and float32
++-0.0 ties), `aggregate_paths` and
 `winner_takes_all` through them, and `stereo_sgm_volume` against the JAX
 stereo_sgm branch that writes the summed volume (the one it runs on the
 CPU).  CPU tensors run each kernel's plain version; the Pallas kernels run
@@ -73,6 +75,62 @@ def test_wta_matches_pallas(rng, D, hi):
         np.testing.assert_array_equal(got[k].numpy(),
                                       np.asarray(want[k]).astype(np.int64),
                                       err_msg=k)
+
+
+def _wta_bruteforce(vol, cap):
+    """The six WTA_LEFT maps of an (H, W, D) volume, pixel by pixel."""
+    H, W, D = vol.shape
+    out = {k: np.zeros((H, W), np.float64) for k in sgm_kernel.WTA_LEFT}
+    for y in range(H):
+        for x in range(W):
+            v = [float(t) for t in vol[y, x]]
+            best = min(range(D), key=lambda d: (v[d], d))
+            bm = min(max(best, 1), D - 2)
+            far = [v[d] for d in range(D) if abs(d - best) > 1]
+            for k, val in (("c0", v[best]), ("best", best),
+                           ("c1", min([cap] + far)), ("cm", v[bm - 1]),
+                           ("cc", v[bm]), ("cp", v[bm + 1])):
+                out[k][y, x] = val
+    return out
+
+
+def _wta_volume(rng, kind, D):
+    H, W = 5, 7
+    if kind == "int16 extremes":
+        v = rng.integers(-32768, 32768, (H, W, D))
+        v[0, 0] = 7                            # flat: best 0, c1 = c0
+        v[0, 1] = -32768
+        v[0, 2] = 32767
+        v[1, :, 0] = -32768                    # best at 0
+        v[2, :, D - 1] = -32768                # best at D - 1
+        v[3] = rng.integers(0, 3, (W, D))      # ties
+        return v.astype(np.int16), 30000
+    if kind == "int32 beyond 2^24":
+        v = rng.integers(-2 ** 30, 2 ** 30, (H, W, D))
+        v[0, :, ::3] = -2 ** 29 - 1            # ties
+        v[1] = rng.integers(0, 3, (W, D)) * 2 ** 25 + 1
+        return v.astype(np.int32), 10 ** 9
+    v = (rng.integers(-3, 4, (H, W, D)) * 3.0e7).astype(np.float32)
+    v[v == 0] = -0.0
+    v[0, :, ::2] = 0.0                         # +0.0 / -0.0 ties
+    v[0, :, 1::2] = -0.0
+    v[1] = rng.uniform(-1, 1, (W, D))
+    return v, 1e9
+
+
+@pytest.mark.parametrize("D", [4, 37])
+@pytest.mark.parametrize("kind", ["int16 extremes", "int32 beyond 2^24",
+                                  "float32 +-0.0 ties"])
+def test_wta_matches_bruteforce(rng, kind, D):
+    """2h exactly equal to the per-pixel definition: c0 the minimum, best
+    the smallest d reaching it (+0.0 and -0.0 tie), c1 the capped minimum
+    over |d - best| > 1, cm / cc / cp at clip(best, 1, D - 2) -1 / 0 / +1."""
+    vol, cap = _wta_volume(rng, kind, D)
+    got = sgm_kernel.wta(torch.tensor(vol), cap)
+    want = _wta_bruteforce(vol, cap)
+    for k in sgm_kernel.WTA_LEFT:
+        np.testing.assert_array_equal(got[k].numpy().astype(np.float64),
+                                      want[k], err_msg=k)
 
 
 def test_wta_dtypes():

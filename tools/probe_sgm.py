@@ -1,7 +1,8 @@
-"""What limits the SGM aggregation kernels 2d, 2e, 2f and 2g (chain_kernel
-and 2f's wta_tile_kernel in sgm_aggregate.cu): each is timed as built and
-in probe builds made from edited copies of the source.  The probes'
-outputs are meaningless; only their times are read.
+"""What limits the SGM kernels 2c-2h (sgm_census.cu's census_cost_kernel;
+chain_kernel, 2f's wta_tile_kernel and 2h's wta_stream_kernel in
+sgm_aggregate.cu): each is timed as built and in probe builds made from
+edited copies of its source.  The probes' outputs are meaningless; only
+their times are read.
 
   2d ahead N           2d's register ring holds N steps (built: 32)
   2e ahead N           2e's register ring holds N steps (built: 8)
@@ -22,11 +23,26 @@ outputs are meaningless; only their times are read.
   WTA staging only     2f's WTA blocks copy their row tiles into shared
                        memory and stop (a runtime test that always holds)
   WTA warps N          2f's WTA block has N warps (built: 8)
+  2h loads only        2h's loads run, its reductions and shuffles do not
+                       (a runtime test that never holds)
+  2h warps N           2h's block has N warps, 32 pixels each (built: 4)
+  2h ring N            2h's lanes keep N bytes of loads in flight (built:
+                       32, 4 pixels at D = 128, int16)
+  2c store only        2c stores the constant 64 and computes nothing:
+                       no staging, no census, no counts (runtime tests)
+  2c census only       2c stages its rows and builds its census words but
+                       writes no cost (a runtime test that never holds)
+  2c no popc           2c adds the two xor words instead of counting their
+                       bits
+  2c tile N            2c's block takes N pixels of a row (built: 256)
+  2c streaming stores  2c's 16-byte stores are __stcs (evict first)
 
 Times go through the C entries at chip_smoke.py phase 3's full shape
 (768 x 1024, D 128, P1 10, P2 120, 8 paths) on the census cost of its
-synthetic pair, as the best of two CUDA-event runs of 10 launches.  Needs
-one NVIDIA Hopper card and nvcc; run from the repository root:
+synthetic pair (2h on its int16 total, cap 30000), as the best of two
+CUDA-event runs of 10 launches; a probe build of one source times the
+kernels of that source.  Needs one NVIDIA Hopper card and nvcc; run from
+the repository root:
 
     python3 tools/probe_sgm.py
 """
@@ -75,13 +91,39 @@ EDITS = {
        for n in (4, 16)},
     "WTA staging only": [(r"__syncthreads\(\);\n", "__syncthreads();\n"
                           "  if (h > 0) return;\n", 1)],
+    "2h loads only": [(r"step\(ring\[s\], t0 \+ s\);",
+                       "if (dm < 0) step(ring[s], t0 + s);", 1)],
+    **{f"2h warps {n}": [(r"kWta2hWarps = 4;", f"kWta2hWarps = {n};", 1)]
+       for n in (8, 16)},
+    **{f"2h ring {n}": [(r"kWta2hRing = 32;", f"kWta2hRing = {n};", 1)]
+       for n in (16, 64)},
+    # sgm_census.cu
+    "2c store only": [
+        (r"  stage_rows<", "  if (h < 0) stage_rows<", 2),
+        (r"  census_words\(sl, sr", "  if (h < 0) census_words(sl, sr", 1),
+        (r"if \(x < d0\) \{", "if (w > 0) {", 1)],
+    "2c census only": [(r"for \(int p = p0; p < np;",
+                        "for (int p = p0; h < 0 && p < np;", 1)],
+    "2c no popc": [(r"__popc\(cl\.x \^ cr\.x\) \+ __popc\(cl\.y \^ cr\.y\)",
+                    "((cl.x ^ cr.x) + (cl.y ^ cr.y))", 1)],
+    **{f"2c tile {n}": [(r"kTile = 256;", f"kTile = {n};", 1)]
+       for n in (64, 128)},
+    "2c streaming stores": [(r"\*\(uint4\*\)out = (make_uint4\([^;]*\));",
+                             r"__stcs((uint4*)out, \1);", 1)],
 }
+CENSUS = "sgm_census"
+
+
+def lib_of(variant: str) -> str:
+    """The source a variant edits: 2c's is sgm_census.cu, the others'
+    sgm_aggregate.cu."""
+    return CENSUS if variant.startswith("2c ") else LIB
 
 
 def probe_source(variant: str) -> str:
-    """csrc/sgm_aggregate.cu with the variant's edits applied (raises if a
+    """The variant's source (lib_of) with its edits applied (raises if a
     pattern no longer matches the kernel as often as it should)."""
-    with open(os.path.join(cuda_build.CSRC, f"{LIB}.cu")) as f:
+    with open(os.path.join(cuda_build.CSRC, f"{lib_of(variant)}.cu")) as f:
         src = f.read()
     for pattern, repl, count in EDITS[variant]:
         src, n = re.subn(pattern, repl, src)
@@ -95,10 +137,11 @@ def build_probe(variant: str) -> ctypes.CDLL:
     out_dir = os.path.join(os.path.abspath(cuda_build.BUILD_DIR), "probe")
     os.makedirs(out_dir, exist_ok=True)
     tag = variant.replace(" ", "_")
-    src = os.path.join(out_dir, f"{LIB}_{tag}.cu")
+    lib = lib_of(variant)
+    src = os.path.join(out_dir, f"{lib}_{tag}.cu")
     with open(src, "w") as f:
         f.write(probe_source(variant))
-    lib_path = os.path.join(out_dir, f"lib{LIB}_{tag}.so")
+    lib_path = os.path.join(out_dir, f"lib{lib}_{tag}.so")
     cmd = [cuda_build._nvcc(), *cuda_build.ARCH_FLAGS, "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-o", lib_path, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -117,39 +160,51 @@ def main() -> int:
         raise SystemExit("CUDA is not available: the probes need one card")
     print(gpu_line(), flush=True)
     variants = ["as built", *EDITS]
-    with ThreadPoolExecutor(len(variants)) as pool:
-        libs = list(pool.map(
-            lambda v: cuda_build.load_library(LIB) if v == "as built"
-            else build_probe(v), variants))
+    with ThreadPoolExecutor(len(EDITS)) as pool:
+        probes = dict(zip(EDITS, pool.map(build_probe, EDITS)))
+    built = {lib: cuda_build.load_library(lib) for lib in (CENSUS, LIB)}
 
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     left, right, _ = dense_scene()
     H, W, D = 768, 1024, 128
-    cost = sk.census_cost(torch.tensor(left, device=dev),
-                          torch.tensor(right, device=dev), D)
+    L = torch.tensor(left, device=dev)
+    R = torch.tensor(right, device=dev)
+    cost = sk.census_cost(L, R, D)
     hsum = sk.sgm_horizontal(cost)
     part = sk.sgm_partial(cost, hsum)
+    total = sk.sgm_total(cost, part)
     scratch = torch.empty((2, H, W, D), dtype=torch.uint8, device=dev)
     out = torch.empty((H, W, D), dtype=torch.int16, device=dev)
+    vol = torch.empty((H, W, D), dtype=torch.uint8, device=dev)
     maps = torch.empty((9, H, W), dtype=torch.int32, device=dev)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    calls = {   # kernel: (entry, argtypes, arguments without the stream)
-        "2d": ("sgm_horizontal_launch", [vp] * 3 + [ci] * 6 + [vp],
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    calls = {   # kernel: (library, entry, argtypes, arguments but the stream)
+        "2c": (CENSUS, "sgm_census_cost_launch", [vp] * 3 + [ci] * 3 + [vp],
+               [L, R, vol, H, W, D]),
+        "2d": (LIB, "sgm_horizontal_launch", [vp] * 3 + [ci] * 6 + [vp],
                [cost, scratch[0], out, H, W, D, 10, 120, 0]),
-        "2e": ("sgm_partial_launch", [vp] * 5 + [ci] * 7 + [vp],
+        "2e": (LIB, "sgm_partial_launch", [vp] * 5 + [ci] * 7 + [vp],
                [cost, hsum, scratch[0], scratch[1], out, H, W, D, 10, 120,
                 1, 0]),
-        "2f": ("sgm_total_wta_launch", [vp] * 6 + [ci] * 7 + [vp],
+        "2f": (LIB, "sgm_total_wta_launch", [vp] * 6 + [ci] * 7 + [vp],
                [cost, part, scratch[0], scratch[1], out, maps, H, W, D, 10,
                 120, 1, 0]),
-        "2g": ("sgm_total_launch", [vp] * 5 + [ci] * 7 + [vp],
+        "2g": (LIB, "sgm_total_launch", [vp] * 5 + [ci] * 7 + [vp],
                [cost, part, scratch[0], scratch[1], out, H, W, D, 10, 120,
                 1, 0]),
+        "2h": (LIB, "sgm_wta_launch", [vp] * 3 + [ci] * 4 + [cf, vp],
+               [total, maps[:5], maps[5], H, W, D, 0, 30000.0]),
     }
     times = {}
-    for variant, so in zip(variants, libs):
-        for kernel, (sym, argtypes, args) in calls.items():
+    for variant in variants:
+        for kernel, (lib, sym, argtypes, args) in calls.items():
+            if variant == "as built":
+                so = built[lib]
+            elif lib_of(variant) == lib:
+                so = probes[variant]
+            else:
+                continue
             fn = getattr(so, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
