@@ -41,6 +41,13 @@ and the script exits non-zero:
      scene with 4096 keypoints per image, with the knn2 launch count reset
      just before and read just after, and check the reconstruction against
      the scene's ground truth;
+ 4b. drive `cli sfm` on the same 8 views written as JPEGs (quality 95)
+     whose EXIF carries the render's focal, so the seed takes the
+     calibrated 5-point path, with the knn2 launch count and the 5-point
+     RANSAC call count reset just before and read just after; gates: 8/8
+     registered, ATE < 0.05, the 5-point RANSAC ran; then time the 5-point
+     pieces on the card (128 batched 5x9 SVDs, the 128-sample solve, the
+     RANSAC with its refits);
   5. drive `metricsfm_tpu_torch.cli dense` (SGM, the fused path) on a
      synthetic rectified 768x1024 pair with known disparity (24 px
      background, 72 px block), D=128, written through the SURE pose
@@ -63,6 +70,11 @@ and the script exits non-zero:
      build_match_graph -> IncrementalSfM (PCG from 128 cameras), with the
      2a count reset just before and read just after; gates: >= 95 %
      registered in one model, ATE < 0.05, at least one PCG solve;
+ 9c. the same path once on 500 views (20 x 25, the JAX bench's 500-view
+     configuration), whose periodic full BAs above 400 cameras run
+     hierarchical submap BA; gates as phase 9 and at least one
+     hierarchical full BA; its stage table shows the `sfm/ba_solve/hier`
+     span;
  10. print the paths' numbers, the kernel table (2a-2h, launches summed
      over the paths), the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
@@ -1272,6 +1284,123 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     return launches, stats
 
 
+def write_exif_jpegs(fold, images, focal_px):
+    """The rendered views as JPEGs (quality 95) whose EXIF carries the
+    render's focal: FocalLength in mm with FocalPlaneXResolution of 2540
+    per inch (100 px per mm), so focal_px = FocalLength * 100."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(fold, exist_ok=True)
+    exif = Image.Exif()
+    exif[0x8769] = {0x920A: focal_px / 100.0,          # FocalLength
+                    0xA20E: 2540.0, 0xA20F: 2540.0,    # FocalPlane X/Y res
+                    0xA210: 2}                         # ... per inch
+    for i, img in enumerate(images):
+        pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+        pil.save(os.path.join(fold, f"view_{i:03d}.jpg"), quality=95,
+                 exif=exif)
+
+
+def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
+    """Run `cli sfm` on the rendered scene of phase 4 written as EXIF-tagged
+    JPEGs, so every pair seeds through the calibrated 5-point path; the
+    knn2 launch count and the 5-point RANSAC call count are reset just
+    before each run and read just after.  Gates: 8/8 registered, ATE <
+    0.05, the 5-point RANSAC ran, every camera model calibrated.  Returns
+    the last run's (launch counts, stats)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.ops import five_point, matching, np_geom
+    from metricsfm_tpu_torch.utils import synth
+    from metricsfm_tpu_torch.utils.exif import extract_image_info
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+    focal = 1.1 * width
+    gt = synth.render_scene(seed=0, n_cams=n_cams, width=width,
+                            height=height, focal=focal)
+    stats = {}
+    for run in range(runs):
+        fold = tempfile.mkdtemp(prefix="msf_smoke_exif_")
+        try:
+            write_exif_jpegs(fold, gt["images"], focal)
+            f_read = extract_image_info(
+                os.path.join(fold, "view_000.jpg"))["focal_px"]
+            if abs(f_read - focal) > 0.005 * focal:
+                raise AssertionError(f"EXIF focal {f_read} != {focal}")
+            GLOBAL_TRACER.reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            matching.knn2_gather.launches = 0
+            five_point.essential_ransac_5pt.calls = 0
+            t0 = time.perf_counter()
+            scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
+                               "all", "--no-resize", "--max-kp",
+                               str(max_kp), "--device", "cuda"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {"knn2": matching.knn2_gather.launches}
+            calls_5pt = five_point.essential_ransac_5pt.calls
+        finally:
+            shutil.rmtree(fold, ignore_errors=True)
+        if not scenes:
+            raise AssertionError("exif: no model reconstructed")
+        best = max(scenes, key=lambda s: len(s.registered))
+        est = np.stack([np_geom.camera_center(best.poses[i])
+                        for i in best.registered])
+        ate = synth.ate_vs_gt(est, gt["centers"][best.registered])
+        peak = torch.cuda.max_memory_allocated()
+        label = "warm-up" if run < runs - 1 else "timed"
+        print(f"  exif run {run} ({label}): EXIF focal {f_read:.3f} px "
+              f"(true {focal:.3f}); {len(best.registered)}/{n_cams} "
+              f"registered, {best.n_points()} points, ATE {ate:.5f}, "
+              f"{dt:.3f} s = {n_cams / dt:.4f} images/s, peak "
+              f"{peak / 2**20:.1f} MiB, launches {launches}, 5-point "
+              f"RANSAC calls {calls_5pt}", flush=True)
+        if len(best.registered) != n_cams:
+            raise AssertionError(
+                f"exif: registered {len(best.registered)}/{n_cams}")
+        if ate >= 0.05:
+            raise AssertionError(f"exif: ATE {ate} >= 0.05")
+        if calls_5pt < 1:
+            raise AssertionError("exif: the 5-point seed never ran")
+        if not all(m.calibrated for m in best.models):
+            raise AssertionError("exif: a camera model is not calibrated")
+        stats = {"images_per_s": n_cams / dt, "seconds": dt, "ate": ate,
+                 "peak_bytes": peak, "five_point_calls": calls_5pt,
+                 "focal_exif": f_read, "stages": GLOBAL_TRACER.report()}
+    print("  stage table (timed run):\n" + "\n".join(
+        "    " + ln for ln in stats["stages"].splitlines()), flush=True)
+    stats["five_point_ms"] = time_five_point()
+    return launches, stats
+
+
+def time_five_point(n_hyp=128, n=2000):
+    """Device times of the calibrated seed's pieces at the seed's shapes:
+    the batched 5x9 SVDs of 128 minimal samples alone, the whole 5-point
+    solve of the 128 samples, and the 5-point RANSAC with its refits over
+    `n` correspondences (plain torch ops, no kernel of this repo)."""
+    import torch
+    from metricsfm_tpu_torch.ops import five_point
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x1 = torch.rand((n, 2), generator=g, device="cuda") - 0.5
+    x2 = x1 + 0.01 * torch.rand((n, 2), generator=g, device="cuda")
+    s1, s2 = x1[:5 * n_hyp].reshape(n_hyp, 5, 2), \
+        x2[:5 * n_hyp].reshape(n_hyp, 5, 2)
+    ms = {"svd_5x9_x128": cuda_time_ms(
+              lambda: five_point._nullspace4(s1, s2)),
+          "essential_5pt_x128": cuda_time_ms(
+              lambda: five_point.essential_5pt(s1, s2)),
+          "essential_ransac_5pt": cuda_time_ms(
+              lambda: five_point.essential_ransac_5pt(
+                  x1, x2, g, num_hypotheses=n_hyp, th_sampson=1e-5),
+              reps=5)}
+    print(f"  5-point pieces on the card (ms): {ms}", flush=True)
+    return ms
+
+
 def throughput_phase(n_pairs=96, n_kp=4096, iters=6):
     """The matching-throughput path (`ops.matching.matching_throughput`,
     the counterpart of the JAX bench's bench_matching): pairs/s of kernels
@@ -1355,11 +1484,13 @@ def aerial_run(gt, cfg, device="cuda"):
         shutil.rmtree(fold, ignore_errors=True)
 
 
-def aerial_phase():
-    """Run the aerial path once, with the kernel-2a launch count reset just
-    before and read just after.  Gates (bench.py:389): >= 95 % of the views
-    registered in one model, ATE < 0.05, and the PCG camera solve ran.
-    Returns (launches, stats)."""
+def aerial_phase(rows=10, cols=20, hierarchical=False):
+    """Run the aerial path once on a rows x cols survey, with the kernel-2a
+    launch count reset just before and read just after.  Gates (bench.py:
+    389): >= 95 % of the views registered in one model, ATE < 0.05, and
+    the PCG camera solve ran; with `hierarchical`, also at least one
+    periodic full BA through hierarchical submap BA.  Returns (launches,
+    stats)."""
     import numpy as np
     import torch
     from metricsfm_tpu_torch.models.match_graph import candidates_gps
@@ -1367,7 +1498,7 @@ def aerial_phase():
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
 
-    gt, cfg, render_s = aerial_setup()
+    gt, cfg, render_s = aerial_setup(rows=rows, cols=cols)
     n_cams = len(gt["images"])
     n_cand = len(candidates_gps(gt["centers"][:, :2], cfg.graph.knn))
     GLOBAL_TRACER.reset()
@@ -1401,6 +1532,8 @@ def aerial_phase():
         raise AssertionError(f"aerial: ATE {ate} >= 0.05")
     if sfm.stats["cg_solves"] < 1:
         raise AssertionError("aerial: the PCG camera solve never ran")
+    if hierarchical and sfm.stats["full_ba_hier"] < 1:
+        raise AssertionError("aerial: no hierarchical submap BA ran")
     return launches, {"images_per_s": n_cams / dt, "seconds": dt,
                       "registered": len(reg), "n_images": n_cams,
                       "ate": ate, "candidate_pairs": n_cand,
@@ -1600,6 +1733,9 @@ def main(argv=None):
     with phase("4 main path: cli sfm"):
         launches, stats = main_path_phase()
         check_launches(launches, "the sfm path")
+    with phase("4b calibrated path: cli sfm on EXIF-tagged JPEGs"):
+        exif_launches, exif_stats = exif_path_phase()
+        check_launches(exif_launches, "the calibrated sfm path")
     with phase("5 dense path: cli dense"):
         dense_launches, dense_stats = dense_phase()
         check_launches({k: n for k, n in dense_launches.items()
@@ -1614,9 +1750,13 @@ def main(argv=None):
     with phase("9 aerial path: 200 views, priori candidates, PCG"):
         aerial_launches, aerial_stats = aerial_phase()
         check_launches(aerial_launches, "the aerial path")
+    with phase("9c aerial path: 500 views, hierarchical submap BA"):
+        big_launches, big_stats = aerial_phase(rows=20, cols=25,
+                                               hierarchical=True)
+        check_launches(big_launches, "the 500-view aerial path")
     # a kernel's launches: the sum of its counts over the paths' timed runs
-    for path_launches in (dense_launches, volume_launches, tput_launches,
-                          aerial_launches):
+    for path_launches in (exif_launches, dense_launches, volume_launches,
+                          tput_launches, aerial_launches, big_launches):
         for k, n in path_launches.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
@@ -1631,13 +1771,17 @@ def main(argv=None):
     with phase("10 report"):
         print(json.dumps({
             "e2e": {k: v for k, v in stats.items() if k != "stages"},
+            "e2e_exif": {k: v for k, v in exif_stats.items()
+                         if k != "stages"},
             "dense": {k: v for k, v in dense_stats.items() if k != "stages"},
             "dense_volume": volume_stats,
             "dense_elas": {k: v for k, v in elas_stats.items()
                            if k != "stages"},
             "matching_throughput_pairs_per_s": tput_rates,
             "aerial": {k: v for k, v in aerial_stats.items()
-                       if k != "stages"}}), flush=True)
+                       if k != "stages"},
+            "aerial_500": {k: v for k, v in big_stats.items()
+                           if k != "stages"}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

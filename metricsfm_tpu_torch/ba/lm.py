@@ -26,8 +26,12 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
   inexact-Newton forcing sequence (Agarwal et al., "Bundle Adjustment in
   the Large"): eta starts at cg_eta0 and tightens to max(eta^1.5, cg_tol)
   on every accepted LM step.
-
-Not ported yet: the GPS / pose-prior terms (see ba/problem.py).
+* The camera-indexed prior terms (GPS anchors, pose priors, GPS triples;
+  ba/problem.py) add their Gauss-Newton blocks to the reduced system: to
+  S in the dense path, to the matvec and the block-Jacobi preconditioner
+  in the PCG path.  Their Jacobians come from ``torch.func.jacfwd``.  A
+  solve whose prior weights are all zero skips them (one host check per
+  solve).
 """
 from __future__ import annotations
 
@@ -66,12 +70,15 @@ def _residual_one(pose, intr, point, uv):
     return projection.reprojection_residual(pose, intr, point, uv)
 
 
-def _residual_aux(pose, intr, point, uv):
-    r = _residual_one(pose, intr, point, uv)
-    return r, r
+def _aux(fn):
+    """fn returning (r, r): jacfwd(has_aux=True) then yields (J, r)."""
+    def f(*args):
+        r = fn(*args)
+        return r, r
+    return f
 
 
-_rj = vmap(jacfwd(_residual_aux, argnums=(0, 1, 2), has_aux=True))
+_rj = vmap(jacfwd(_aux(_residual_one), argnums=(0, 1, 2), has_aux=True))
 
 
 def _gathered(problem: BAProblem):
@@ -125,9 +132,108 @@ def compute_residuals(problem: BAProblem):
     return r * w * problem.track_mask.to(r.dtype)[:, :, None]
 
 
+def _gps_residual_one(pose, gpos, gw):
+    return gw * (projection.camera_center(pose) - gpos)
+
+
+def gps_residuals(problem: BAProblem):
+    """GPS camera-center anchor residuals (C, 3): weight * (center - gps)
+    (ref GPSErrorPoseAbsolute, utils/gps_error_pose_absolute.h:31-44,
+    with per-axis weights)."""
+    return _gps_residual_one(problem.poses, problem.gps_pos,
+                             problem.gps_weight)
+
+
+def pose_prior_residuals(problem: BAProblem):
+    """Full-pose prior residuals (C, 6) (ref cam_error_pose_absolute.h)."""
+    return problem.pose_prior_weight * (problem.poses - problem.pose_prior)
+
+
+def _triple_residual(poses3, gps3, w2, eps=1e-8):
+    """(..., 2) GPS relative residuals of camera triples (i, j, k):
+    the cosine of the triangle angle at the middle camera and the distance
+    ratio |ci - cj| / |cj - ck|, each against the GPS triangle (ref
+    gps_error_pose_raletive_angle.h, gps_error_pose_raletive_dis.h)."""
+    c = projection.camera_center(poses3)                  # (..., 3, 3)
+    # a tensor eps: under jacfwd a Python float added to a 0-d dual tensor
+    # promotes the tangent to float64
+    eps = torch.as_tensor(eps, dtype=poses3.dtype, device=poses3.device)
+    v1 = c[..., 0, :] - c[..., 1, :]
+    v2 = c[..., 2, :] - c[..., 1, :]
+    # sqrt(|v|^2 + eps) keeps the Jacobian finite for degenerate triples
+    # (the zero-weight placeholder, three coinciding cameras): norm() has
+    # a NaN gradient at 0, and weight 0 times NaN still poisons the system
+    n1 = torch.sqrt(torch.sum(v1 * v1, dim=-1) + eps)
+    n2 = torch.sqrt(torch.sum(v2 * v2, dim=-1) + eps)
+    cos_est = torch.sum(v1 * v2, dim=-1) / (n1 * n2)
+    g1 = gps3[..., 0, :] - gps3[..., 1, :]
+    g2 = gps3[..., 2, :] - gps3[..., 1, :]
+    m1 = torch.sqrt(torch.sum(g1 * g1, dim=-1) + eps)
+    m2 = torch.sqrt(torch.sum(g2 * g2, dim=-1) + eps)
+    cos_gps = torch.sum(g1 * g2, dim=-1) / (m1 * m2)
+    return torch.stack([w2[..., 0] * (cos_est - cos_gps),
+                        w2[..., 1] * (n1 / n2 - m1 / m2)], dim=-1)
+
+
+def gps_triple_residuals(problem: BAProblem):
+    """(T, 2) relative GPS residuals over the configured camera triples."""
+    return _triple_residual(problem.poses[problem.gps_triple],
+                            problem.gps_pos[problem.gps_triple],
+                            problem.gps_triple_weight)
+
+
 def problem_cost(problem: BAProblem, huber_delta: float):
-    return robust_cost(compute_residuals(problem), problem.track_mask,
-                       huber_delta)
+    reproj = robust_cost(compute_residuals(problem), problem.track_mask,
+                         huber_delta)
+    rg = gps_residuals(problem)
+    rp = pose_prior_residuals(problem)
+    rt = gps_triple_residuals(problem)
+    return (reproj + 0.5 * torch.sum(rg * rg) + 0.5 * torch.sum(rp * rp)
+            + 0.5 * torch.sum(rt * rt))
+
+
+def has_priors(problem: BAProblem) -> bool:
+    """Whether any GPS / pose-prior / triple weight is nonzero (one host
+    read)."""
+    return bool(torch.any(problem.gps_weight != 0)
+                | torch.any(problem.pose_prior_weight != 0)
+                | torch.any(problem.gps_triple_weight != 0))
+
+
+_gps_rj = vmap(jacfwd(_aux(_gps_residual_one), has_aux=True))
+_triple_rj = vmap(jacfwd(_aux(_triple_residual), has_aux=True))
+
+
+def _gps_prior_blocks(problem: BAProblem):
+    """Camera-indexed Gauss-Newton blocks of the GPS / prior / triple terms
+    (O(C)): Hg (C, 6, 6) per camera (GPS + pose prior), Ht (T, 3, 6, 3, 6)
+    per triple, and their share of the rhs (6C + 3M,)."""
+    C, M = problem.n_cameras, problem.n_models
+    dev = problem.points.device
+    Jg, rg = _gps_rj(problem.poses, problem.gps_pos, problem.gps_weight)
+    Hg = torch.einsum("cri,crj->cij", Jg, Jg)               # (C,6,6)
+    gg = torch.einsum("cri,cr->ci", Jg, rg)
+    wp = problem.pose_prior_weight
+    Hg = Hg + torch.diag_embed(wp * wp)
+    gg = gg + wp * pose_prior_residuals(problem)
+
+    Jt, rt = _triple_rj(problem.poses[problem.gps_triple],
+                        problem.gps_pos[problem.gps_triple],
+                        problem.gps_triple_weight)        # (T,2,3,6), (T,2)
+    Ht = torch.einsum("trai,trbj->taibj", Jt, Jt)           # (T,3,6,3,6)
+    gt = torch.einsum("trai,tr->tai", Jt, rt)               # (T,3,6)
+
+    rhs_extra = torch.zeros((6 * C + 3 * M,), dtype=gg.dtype, device=dev)
+    rhs_extra[:6 * C] -= gg.reshape(-1)
+    rhs_extra.index_add_(0, _triple_rows(problem).reshape(-1),
+                         -gt.reshape(-1))
+    return Hg, Ht, rhs_extra
+
+
+def _triple_rows(problem: BAProblem):
+    """(T, 3, 6) rows of the triples' cameras in the reduced system."""
+    return 6 * problem.gps_triple[:, :, None] + torch.arange(
+        6, device=problem.gps_triple.device)
 
 
 def _inv3x3(A, eps=1e-12):
@@ -260,11 +366,24 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig):
     return S, rhs, aux
 
 
-def solve_reduced(S, rhs, problem: BAProblem, lam, cfg: LMConfig):
-    """Damp + freeze-mask the reduced system and solve it by Cholesky.
+def solve_reduced(S, rhs, problem: BAProblem, lam, cfg: LMConfig,
+                  priors: bool = True):
+    """Add the prior terms' blocks (when `priors`), damp + freeze-mask the
+    reduced system and solve it by Cholesky.
 
     A factorization failure (not positive definite) yields a NaN step,
     which the LM loop rejects, as in the JAX package."""
+    if priors:
+        C = problem.n_cameras
+        Hg, Ht, rhs_extra = _gps_prior_blocks(problem)
+        pose_rows = 6 * torch.arange(C, device=S.device)[:, None] \
+            + torch.arange(6, device=S.device)
+        S = S.index_put((pose_rows[:, :, None], pose_rows[:, None, :]), Hg,
+                        accumulate=True)
+        trip = _triple_rows(problem)                           # (T,3,6)
+        S = S.index_put((trip[:, :, :, None, None],
+                         trip[:, None, None, :, :]), Ht, accumulate=True)
+        rhs = rhs + rhs_extra
     diag = torch.diagonal(S)
     S = S + torch.diag_embed(lam * torch.clamp(diag, min=1e-12) + 1e-10)
     free = torch.cat([problem.pose_mut.repeat_interleave(6),
@@ -362,11 +481,15 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
 
 
 def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
-              tol_rel=None):
+              tol_rel=None, prior_blocks=None):
     """Block-Jacobi PCG on the damped, freeze-masked reduced system.
 
-    The matvec applies S = Hcc - E Hpp^-1 E^T track by track; damping is
-    lam * diag(S) (clamped) + 1e-10, frozen dofs are identity rows.  The
+    The matvec applies S = Hcc - E Hpp^-1 E^T track by track, plus the
+    prior terms' camera blocks (`prior_blocks` = (Hg, Ht) of
+    _gps_prior_blocks, or None); the preconditioner's pose blocks include
+    Hg, which is what pins a problem whose gauge rests on the pose prior
+    alone.  Damping is lam * diag(S) (clamped) + 1e-10, frozen dofs are
+    identity rows.  The
     loop stops after cfg.cg_iterations or once |r|^2 <= (tol_rel |b|)^2
     (tol_rel defaults to cfg.cg_tol).  That test lives on the device: an
     iteration that starts converged moves nothing, and the host reads the
@@ -379,11 +502,22 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
     free = torch.cat([problem.pose_mut.repeat_interleave(6),
                       problem.intr_mut.repeat_interleave(3)])
     blk_pose, blk_intr = terms["blk_pose"], terms["blk_intr"]
+    if prior_blocks is not None:
+        Hg, Ht = prior_blocks
+        blk_pose = blk_pose + Hg
+        trip = _triple_rows(problem)                                # (T,3,6)
+        T = trip.shape[0]
+        # the triples' diagonal: Ht[t, a, i, a, i] at row 6 triple[t, a] + i
+        tdiag = torch.zeros_like(rhs).index_add_(
+            0, trip.reshape(-1),
+            torch.diagonal(Ht.reshape(T, 18, 18), dim1=-2,
+                           dim2=-1).reshape(-1))
     diag_p = torch.diagonal(blk_pose, dim1=-2, dim2=-1)             # (C,6)
     diag_i = torch.diagonal(blk_intr, dim1=-2, dim2=-1)             # (M,3)
-    dampv = lam * torch.clamp(torch.cat([diag_p.reshape(-1),
-                                         diag_i.reshape(-1)]), min=1e-12) \
-        + 1e-10
+    diag_s = torch.cat([diag_p.reshape(-1), diag_i.reshape(-1)])
+    if prior_blocks is not None:
+        diag_s = diag_s + tdiag
+    dampv = lam * torch.clamp(diag_s, min=1e-12) + 1e-10
 
     Jc, W, Hpp_inv = terms["Jc"], terms["W"], terms["Hpp_inv"]
     cam = problem.track_cam
@@ -404,6 +538,13 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
         # into model bins
         Sx = torch.cat([zc[:, :6].reshape(-1),
                         _bin_sum(zc[:, 6:], cam_model, M).reshape(-1)])
+        if prior_blocks is not None:
+            xp = xm[:6 * C].reshape(C, 6)
+            Sxp = torch.einsum("cij,cj->ci", Hg, xp)
+            tx = torch.einsum("taibj,tbj->tai", Ht, xp[problem.gps_triple])
+            Sxp = Sxp.index_add_(0, problem.gps_triple.reshape(-1),
+                                 tx.reshape(-1, 6))
+            Sx[:6 * C] += Sxp.reshape(-1)
         Sx = Sx + dampv * xm
         return Sx * free + (1.0 - free) * x
 
@@ -456,10 +597,16 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
 
 
 def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
-                           tol_rel=None):
+                           tol_rel=None, priors: bool = True):
     C, M = problem.n_cameras, problem.n_models
     terms, rhs, aux = _track_terms(problem, lam, cfg)
-    d_cam = _cg_solve(problem, terms, rhs, lam, cfg, tol_rel=tol_rel)
+    prior_blocks = None
+    if priors:
+        Hg, Ht, rhs_extra = _gps_prior_blocks(problem)
+        prior_blocks = (Hg, Ht)
+        rhs = rhs + rhs_extra
+    d_cam = _cg_solve(problem, terms, rhs, lam, cfg, tol_rel=tol_rel,
+                      prior_blocks=prior_blocks)
     d_pt = backsub_points(aux, d_cam, problem)
     d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
     d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
@@ -467,12 +614,15 @@ def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
 
 
 def _assemble_and_solve(problem: BAProblem, lam, cfg: LMConfig,
-                        tol_rel=None):
+                        tol_rel=None, priors: bool = True):
+    """One LM step; `priors` False skips the prior terms (all weights
+    zero)."""
     if cfg.cg_iterations > 0:
-        return _assemble_and_solve_cg(problem, lam, cfg, tol_rel=tol_rel)
+        return _assemble_and_solve_cg(problem, lam, cfg, tol_rel=tol_rel,
+                                      priors=priors)
     C, M = problem.n_cameras, problem.n_models
     S, rhs, aux = partial_camera_system(problem, lam, cfg)
-    d_cam = solve_reduced(S, rhs, problem, lam, cfg)
+    d_cam = solve_reduced(S, rhs, problem, lam, cfg, priors=priors)
     d_pt = backsub_points(aux, d_cam, problem)
     d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
     d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
@@ -490,11 +640,13 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig()):
     lam = float(cfg.init_lambda)
     forcing = cfg.cg_forcing and cfg.cg_iterations > 0
     eta = cfg.cg_eta0 if forcing else cfg.cg_tol
+    priors = has_priors(problem)
     it = 0
     converged = False
     while it < cfg.max_iterations:
         d_pose, d_intr, d_pt = _assemble_and_solve(
-            problem, lam, cfg, tol_rel=eta if forcing else None)
+            problem, lam, cfg, tol_rel=eta if forcing else None,
+            priors=priors)
         cand = problem._replace(poses=problem.poses + d_pose,
                                 intrs=problem.intrs + d_intr,
                                 points=problem.points + d_pt)

@@ -9,10 +9,9 @@ tensors):
 * Mutability masks replace the functor matrix (optimizer.cc:86-125):
   pose_mut (C,), intr_mut (M,), point_mut (P,).
 * Shared vs per-image camera models: the cam_model map (C,) -> M blocks.
-
-The JAX BAProblem also carries GPS anchors, pose priors and GPS triples;
-those terms are not ported yet, so `from_numpy` accepts them only when
-their weights are all zero (the terms then vanish).
+* Camera-indexed prior terms, each off at weight 0 (the default): GPS
+  camera-center anchors, full 6-dof pose priors and GPS relative
+  constraints over camera triples.
 """
 from __future__ import annotations
 
@@ -26,7 +25,8 @@ from ..ops import lie
 CORE_FIELDS = ("poses", "intrs", "cam_model", "points", "track_cam",
                "track_uv", "track_mask", "track_weight", "pose_mut",
                "intr_mut", "point_mut")
-_PRIOR_WEIGHTS = ("gps_weight", "pose_prior_weight", "gps_triple_weight")
+PRIOR_FIELDS = ("gps_pos", "gps_weight", "pose_prior", "pose_prior_weight",
+                "gps_triple", "gps_triple_weight")
 
 
 class BAProblem(NamedTuple):
@@ -45,6 +45,19 @@ class BAProblem(NamedTuple):
     pose_mut: torch.Tensor     # (C,)   1.0 = free, 0.0 = frozen
     intr_mut: torch.Tensor     # (M,)
     point_mut: torch.Tensor    # (P,)
+    # GPS camera-center anchors (ref gps_error_pose_absolute.h): residual
+    # gps_weight * (camera_center(pose) - gps_pos); per-axis weights
+    gps_pos: torch.Tensor      # (C, 3)
+    gps_weight: torch.Tensor   # (C, 3)
+    # full 6-dof pose priors (ref cam_error_pose_absolute.h): residual
+    # pose_prior_weight * (pose - pose_prior)
+    pose_prior: torch.Tensor         # (C, 6)
+    pose_prior_weight: torch.Tensor  # (C, 6)
+    # GPS relative constraints over camera triples (i, j, k) (ref
+    # gps_error_pose_raletive_angle.h / _dis.h): w0 * (cos angle_est -
+    # cos angle_gps) at j, w1 * (ratio_est - ratio_gps) of |ci-cj|/|cj-ck|
+    gps_triple: torch.Tensor         # (T, 3) int64 camera indices
+    gps_triple_weight: torch.Tensor  # (T, 2) [angle_w, dist_w]
 
     @property
     def n_cameras(self):
@@ -72,10 +85,13 @@ class BAProblem(NamedTuple):
 
 def build_problem(poses, intrs, cam_model, points, track_cam, track_uv,
                   track_mask, track_weight=None, pose_mut=None, intr_mut=None,
-                  point_mut=None, device="cpu",
+                  point_mut=None, gps_pos=None, gps_weight=None,
+                  pose_prior=None, pose_prior_weight=None, gps_triple=None,
+                  gps_triple_weight=None, device="cpu",
                   dtype=torch.float32) -> BAProblem:
     """Assemble a BAProblem from host arrays on `device`, filling default
-    masks."""
+    masks; every prior term defaults to weight 0 (one zero-weight
+    placeholder triple)."""
     def to_t(a, dt):
         if torch.is_tensor(a):
             return a.to(device=device, dtype=dt)
@@ -94,25 +110,32 @@ def build_problem(poses, intrs, cam_model, points, track_cam, track_uv,
         return torch.ones((n,), dtype=dtype, device=device) if a is None \
             else f(a)
 
+    def zeros_or(a, *shape):
+        return torch.zeros(shape, dtype=dtype, device=device) if a is None \
+            else f(a)
+
     return BAProblem(
         poses=poses, intrs=intrs, cam_model=i(cam_model), points=points,
         track_cam=i(track_cam), track_uv=f(track_uv),
         track_mask=to_t(track_mask, torch.bool),
         track_weight=ones_or(track_weight, P),
         pose_mut=ones_or(pose_mut, C), intr_mut=ones_or(intr_mut, M),
-        point_mut=ones_or(point_mut, P))
+        point_mut=ones_or(point_mut, P),
+        gps_pos=zeros_or(gps_pos, C, 3),
+        gps_weight=zeros_or(gps_weight, C, 3),
+        pose_prior=zeros_or(pose_prior, C, 6),
+        pose_prior_weight=zeros_or(pose_prior_weight, C, 6),
+        gps_triple=torch.zeros((1, 3), dtype=torch.int64, device=device)
+        if gps_triple is None else i(gps_triple),
+        gps_triple_weight=zeros_or(gps_triple_weight, 1, 2))
 
 
 def from_numpy(arrays, device, dtype=torch.float32) -> BAProblem:
     """The port's BAProblem from a dict of numpy arrays, e.g. a JAX
-    ``BAProblem._asdict()`` brought to the host.  GPS / pose-prior / triple
-    terms must be disabled (all-zero weights)."""
-    for k in _PRIOR_WEIGHTS:
-        if k in arrays and np.any(np.asarray(arrays[k]) != 0):
-            raise NotImplementedError(
-                f"BA term '{k}' (GPS / pose prior, ba/lm.py:134-180, "
-                "614-655) is not ported yet (ROADMAP queue 1)")
+    ``BAProblem._asdict()`` brought to the host; absent prior fields take
+    their zero-weight defaults."""
     return build_problem(**{k: arrays[k] for k in CORE_FIELDS},
+                         **{k: arrays.get(k) for k in PRIOR_FIELDS},
                          device=device, dtype=dtype)
 
 
@@ -140,7 +163,8 @@ def normalize_problem(problem: BAProblem, target_scale: float = 100.0):
     t = problem.poses[:, 3:6]
     t_new = s * (t + R @ med)
     new_poses = torch.cat([problem.poses[:, :3], t_new], dim=-1)
-    return problem._replace(points=new_points, poses=new_poses), (med, s)
+    return problem._replace(points=new_points, poses=new_poses,
+                            gps_pos=(problem.gps_pos - med) * s), (med, s)
 
 
 def denormalize_problem(problem: BAProblem, transform):
@@ -150,7 +174,8 @@ def denormalize_problem(problem: BAProblem, transform):
     R = lie.angle_axis_to_matrix(problem.poses[:, :3])
     t_new = problem.poses[:, 3:6] / s - R @ med
     new_poses = torch.cat([problem.poses[:, :3], t_new], dim=-1)
-    return problem._replace(points=new_points, poses=new_poses)
+    return problem._replace(points=new_points, poses=new_poses,
+                            gps_pos=problem.gps_pos / s + med)
 
 
 def perturb_problem(problem: BAProblem, generator, sigma_rot=0.1,

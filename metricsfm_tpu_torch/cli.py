@@ -21,11 +21,8 @@ import os
 
 
 def _device(name: str):
-    import torch
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return dev
+    from .utils.device import resolve
+    return resolve(name, "--device")
 
 
 def cmd_sfm(args):

@@ -26,6 +26,7 @@ from ..config import DatabaseOptions
 from ..io import store as fstore
 from ..ops import sift
 from ..utils import exif as exif_util
+from ..utils.device import resolve as resolve_device
 from .incremental import ImageFeatures
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
@@ -59,15 +60,16 @@ class Database:
 
     def __init__(self, fold: str, options: DatabaseOptions,
                  output_fold: Optional[str] = None,
-                 owner: Optional[Tuple[int, int]] = None, device="cpu"):
+                 owner: Optional[Tuple[int, int]] = None, device="cuda"):
         """owner=(process_id, process_count) makes this database instance
         responsible for a contiguous image shard: feature extraction (and
         its resume bookkeeping) only touches owned images — the host-level
         sharding of the per-image store for multi-host runs (SURVEY §5;
         the reference's per-image files sharded per host).  Reads are
         unrestricted (a shared filesystem or a post-run sync is assumed,
-        like the reference's output folder).  Extraction runs on `device`."""
-        self.device = torch.device(device)
+        like the reference's output folder).  Extraction runs on `device`
+        (the card unless the caller passes the CPU)."""
+        self.device = resolve_device(device)
         self.fold = fold
         self.opts = options
         self.out = output_fold or os.path.join(fold, "mtpu_db")

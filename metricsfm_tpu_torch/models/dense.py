@@ -22,6 +22,7 @@ from ..config import DenseOptions
 from ..ops import elas as elas_ops
 from ..ops import sgm as sgm_ops
 from ..ops.sift import _bilinear
+from ..utils.device import resolve as resolve_device
 from ..utils.tracing import span
 
 
@@ -102,12 +103,12 @@ class DenseReconstruction:
     """Per-consecutive-pair dense stereo (ref Run/SGMDense/ELASDense) on
     `device`."""
 
-    def __init__(self, options: DenseOptions, device="cpu"):
+    def __init__(self, options: DenseOptions, device="cuda"):
         if options.method not in ("sgm", "elas"):
             raise ValueError(f"dense method {options.method!r}: expected "
                              "'sgm' or 'elas'")
         self.opts = options
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def run(self, fold: str, pose_file: Optional[str] = None,
             image_loader=None, verbose: bool = False):

@@ -20,11 +20,12 @@ package's bucketed shapes.  Random draws (RANSAC samples, the seed BA
 perturbation) come from one torch.Generator on the device, seeded from
 `seed`.
 
-BA over sfm.th_cg_cameras or more cameras solves the reduced camera system
-by matrix-free PCG (ba/lm.py).  Not ported yet, and raising
-NotImplementedError: the calibrated 5-point seed (images with EXIF focal,
-or sfm.calibrated) and hierarchical BA (periodic full BAs above
-sfm.th_hierarchical_cameras).
+Pairs whose images both carry an EXIF focal (or sfm.calibrated) seed by
+5-point RANSAC (ops/five_point.py), falling back to the 8-point essential
+matrix when too few inliers survive.  BA over sfm.th_cg_cameras or more
+cameras solves the reduced camera system by matrix-free PCG (ba/lm.py);
+periodic full BAs above sfm.th_hierarchical_cameras cameras run
+hierarchical submap BA (parallel/submap_ba.py).
 """
 from __future__ import annotations
 
@@ -38,8 +39,10 @@ import torch
 from ..config import PipelineConfig
 from ..ba import LMConfig, solve_lm
 from ..ba import problem as ba_problem
-from ..ops import epipolar, np_geom, pnp, triangulation
+from ..ops import epipolar, five_point, np_geom, pnp, triangulation
+from ..parallel.submap_ba import hierarchical_ba
 from .scene import CameraModel, Scene, bucket
+from ..utils.device import resolve as resolve_device
 from ..utils.tracing import span
 
 
@@ -72,7 +75,7 @@ class IncrementalSfM:
 
     def __init__(self, features: Dict[int, ImageFeatures],
                  matches: Dict[Tuple[int, int], PairMatches],
-                 config: PipelineConfig, seed: int = 0, device="cpu"):
+                 config: PipelineConfig, seed: int = 0, device="cuda"):
         self.features = features
         self.matches = {}
         for (i, j), m in matches.items():
@@ -80,7 +83,7 @@ class IncrementalSfM:
                 i, j, m = j, i, PairMatches(kp_i=m.kp_j, kp_j=m.kp_i)
             self.matches[(i, j)] = m
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.scenes: List[Scene] = []
@@ -152,10 +155,17 @@ class IncrementalSfM:
         calibrated = self.cfg.sfm.calibrated or (
             fi.focal_exif > 0 and fj.focal_exif > 0)
         if calibrated:
-            raise NotImplementedError(
-                "the calibrated seed (5-point RANSAC, ops/five_point.py, "
-                "incremental.py:152) is not ported yet (ROADMAP queue 1, "
-                "'five_point')")
+            f1 = f2 = float(fi.focal_exif or fi.f_hint)
+            # 5-point RANSAC (planar-safe, the reference's calibrated path
+            # essential_matrix_five_point.cc); the 8-point E estimate when
+            # too few RANSAC inliers survive
+            res5 = five_point.relative_pose_known_focal_5pt(
+                p1, p2, f1, f2, self.gen,
+                num_hypotheses=self.cfg.sfm.ransac_5pt_iters)
+            if bool(res5["ok"]):
+                res = res5
+            else:
+                res = epipolar.relative_pose_known_focal(p1, p2, f1, f2)
         else:
             res = epipolar.relative_pose_unknown_focal(p1, p2)
             if not bool(res["valid"]):
@@ -458,11 +468,22 @@ class IncrementalSfM:
             # pose-graph merge (cheap, local).  The FINAL full BA always
             # runs the single global matrix-free CG solve instead: the
             # pose-graph merge leaves low-frequency stitching error that
-            # only a global solve removes.
-            raise NotImplementedError(
-                "hierarchical submap BA (parallel/submap_ba.py, "
-                "incremental.py:470-476, above sfm.th_hierarchical_cameras "
-                "cameras) is not ported yet (ROADMAP queue 1)")
+            # only a global solve removes.  Periodic budget: the iteration
+            # cap and loose rtol of every intermediate solve.
+            kp_xy = {im: self.features[im].xy for im in scene.registered}
+            with span("sfm/ba_solve/hier"):
+                info = hierarchical_ba(
+                    scene, kp_xy, max_cams=self.cfg.sfm.submap_max_cams,
+                    overlap=self.cfg.sfm.submap_overlap,
+                    cfg=self._lm_cfg._replace(
+                        max_iterations=self.cfg.sfm.th_step_full_ba_iterations,
+                        rtol=max(self._lm_cfg.rtol,
+                                 self.cfg.sfm.intermediate_ba_rtol)),
+                    device=self.device)
+            self.stats["full_ba"] += 1
+            self.stats["full_ba_hier"] += 1
+            self.stats["full_ba_iters"] += int(np.sum(info["iterations"]))
+            return None
         if full:
             mutable = list(scene.registered)
             weight = 1.0

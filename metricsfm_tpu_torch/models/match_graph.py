@@ -31,6 +31,7 @@ from ..config import GraphOptions
 from ..io import store as fstore
 from ..ops import epipolar, matching, ransac
 from ..utils import utm
+from ..utils.device import resolve as resolve_device
 from .incremental import PairMatches
 
 
@@ -92,11 +93,11 @@ class MatchGraphBuilder:
     """Build the verified match graph over candidate pairs (batched)."""
 
     def __init__(self, options: GraphOptions, out_fold: Optional[str] = None,
-                 seed: int = 0, batch_pairs: int = 32, device="cpu"):
+                 seed: int = 0, batch_pairs: int = 32, device="cuda"):
         self.opts = options
         self.out = out_fold
         self.batch_pairs = batch_pairs
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 

@@ -4,10 +4,9 @@ Counterpart of metricsfm_tpu/ops/polynomial.py (replacing the reference's
 companion-matrix root finders, SfM/src/utils/polynomial.{h,cc}): a fixed
 iteration count Durand-Kerner (Weierstrass) method followed by
 Ehrlich-Aberth polishing, with complex numbers as (re, im) pairs of real
-tensors, batched over leading axes.
-
-The bracketing solver (real_roots_bracketed) serves only the calibrated
-5-point path and is not ported yet.
+tensors, batched over leading axes; and, for the calibrated 5-point
+solver's degree-10 polynomial, a sign-change bracketing solver
+(real_roots_bracketed) that cannot stall on clustered roots.
 """
 from __future__ import annotations
 
@@ -121,3 +120,73 @@ def real_roots(coeffs, iters: int = 60, imag_tol: float = 1e-4,
 def quartic_real_roots(coeffs, iters: int = 60):
     """Real roots of quartics (descending coeffs, shape (..., 5))."""
     return real_roots(coeffs, iters)
+
+
+def _poly_eval_real(coeffs, x):
+    """Horner for real x: coeffs (..., d+1) descending, x (..., k)."""
+    p = torch.zeros_like(x) + coeffs[..., 0:1]
+    for k in range(1, coeffs.shape[-1]):
+        p = p * x + coeffs[..., k:k + 1]
+    return p
+
+
+def real_roots_bracketed(coeffs, max_roots: int, grid_size: int = 2048,
+                         bisect_iters: int = 60, newton_iters: int = 3):
+    """All simple real roots via sign-change bracketing + bisection.
+
+    p is evaluated on a cubically spaced symmetric grid spanning the
+    Fujiwara root bound; the first `max_roots` sign changes are bisected a
+    fixed number of times, then Newton-polished.  Roots of even
+    multiplicity (no sign change) are not found: harmless inside RANSAC,
+    where tangent configurations have measure zero.
+
+    Args:
+      coeffs: (..., d+1) descending real coefficients.
+      max_roots: number of root slots returned (>= expected real roots).
+    Returns:
+      (roots (..., max_roots), valid (..., max_roots) bool).
+    """
+    dt, dev = coeffs.dtype, coeffs.device
+    lead = coeffs[..., 0:1]
+    lead = torch.where(torch.abs(lead) < 1e-14,
+                       torch.where(lead < 0, -1e-14, 1e-14).to(dt), lead)
+    monic = coeffs / lead
+    # Fujiwara bound R <= 2 max_k |a_k|^(1/k), the last term halved: far
+    # tighter than Cauchy's when coefficients span decades, which in f32
+    # keeps grid resolution near the roots
+    d = monic.shape[-1] - 1
+    kk = torch.arange(1, d + 1, dtype=dt, device=dev)
+    mags = torch.abs(monic[..., 1:])
+    mags = torch.cat([mags[..., :-1], 0.5 * mags[..., -1:]], dim=-1)
+    R = 2.0 * torch.amax(mags ** (1.0 / kk), dim=-1, keepdim=True)
+    R = torch.clamp(R, min=1e-6)                              # (..., 1)
+
+    u = torch.linspace(-1.0, 1.0, grid_size, dtype=dt, device=dev)
+    x = R * (u * u * u)                             # dense near 0, covers +-R
+    s = torch.sign(_poly_eval_real(monic, x))
+    s = torch.where(s == 0, 1.0, s)
+    bracket = (s[..., :-1] * s[..., 1:]) < 0                  # (..., G-1)
+
+    # the first max_roots brackets (by grid position)
+    score = bracket.to(dt) * (2.0 - torch.arange(grid_size - 1, dtype=dt,
+                                                 device=dev) / grid_size)
+    idx = torch.topk(score, max_roots, dim=-1).indices
+    valid = torch.gather(bracket, -1, idx)
+    lo = torch.gather(x, -1, idx)
+    hi = torch.gather(x, -1, idx + 1)
+    plo = _poly_eval_real(monic, lo)
+    for _ in range(bisect_iters):
+        mid = 0.5 * (lo + hi)
+        pm = _poly_eval_real(monic, mid)
+        same = (torch.sign(pm) == torch.sign(plo)) | (pm == 0)
+        lo, hi = torch.where(same, mid, lo), torch.where(same, hi, mid)
+        plo = torch.where(same, pm, plo)
+    root = 0.5 * (lo + hi)
+
+    dmonic = monic[..., :-1] * torch.arange(d, 0, -1, dtype=dt, device=dev)
+    for _ in range(newton_iters):
+        pr = _poly_eval_real(monic, root)
+        dr = _poly_eval_real(dmonic, root)
+        dr = torch.where(torch.abs(dr) < 1e-30, 1e-30, dr)
+        root = root - torch.maximum(torch.minimum(pr / dr, R), -R)
+    return root, valid

@@ -91,13 +91,13 @@ def test_priori_branch_selects_gps_pairs(source, monkeypatch):
         cfg.graph, matching_type="priori", knn=6))
     coords = np.array([jutm.ll_to_utm(a, b)[:2] for a, b in latlon])
     kw = {"priori_utm": coords} if source == "priori_utm" else {}
-    tmg.build_match_graph(_GpsOnlyDatabase(latlon), cfg, **kw)
+    tmg.build_match_graph(_GpsOnlyDatabase(latlon), cfg, device="cpu", **kw)
     assert seen["pairs"] == jmg.candidates_gps(coords, 6)
     # BoW candidates are not ported: they still raise
     bow = dataclasses.replace(cfg, graph=dataclasses.replace(
         cfg.graph, matching_type="feature"))
     with pytest.raises(NotImplementedError, match="BoW"):
-        tmg.build_match_graph(_GpsOnlyDatabase(latlon), bow)
+        tmg.build_match_graph(_GpsOnlyDatabase(latlon), bow, device="cpu")
 
 
 def test_render_aerial_matches_jax():

@@ -6,6 +6,7 @@ carried across with problem.from_numpy.  Tolerances: f32 on both sides;
 the linear systems agree to summation order, and after a fixed number of
 LM iterations the solutions agree to the conditioning of the problem.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from metricsfm_tpu.ba import LMConfig as JLM
 from metricsfm_tpu.ba import lm as jlm
 from metricsfm_tpu.ba import problem as jprob
 from metricsfm_tpu.ba import solve_lm as jsolve
+from metricsfm_tpu.ops import projection as jproj
 from metricsfm_tpu_torch.ba import LMConfig as TLM
 from metricsfm_tpu_torch.ba import lm as tlm
 from metricsfm_tpu_torch.ba import problem as tprob
@@ -44,16 +46,36 @@ def _problem(seed=0, n_cams=6, n_pts=150, shared=False, noise_px=0.3):
         track_weight=jnp.asarray(weight, jnp.float32))
 
 
+def _with_priors(prob, seed):
+    """Nonzero GPS anchors (z down-weighted), full pose priors and four GPS
+    triples, around the problem's own camera centers."""
+    rng = np.random.default_rng(100 + seed)
+    C = prob.poses.shape[0]
+    centers = np.asarray(jax.vmap(jproj.camera_center)(prob.poses))
+    triples = np.array([[0, 1, 2], [1, 2, 3], [2, 4, 5], [3, 1, 5]])
+    return prob._replace(
+        gps_pos=jnp.asarray(centers + 0.05 * rng.normal(size=centers.shape),
+                            jnp.float32),
+        gps_weight=jnp.asarray(np.tile([2.0, 2.0, 0.4], (C, 1)),
+                               jnp.float32),
+        pose_prior=jnp.asarray(np.asarray(prob.poses)
+                               + 0.01 * rng.normal(size=(C, 6)), jnp.float32),
+        pose_prior_weight=jnp.full((C, 6), 0.5, jnp.float32),
+        gps_triple=jnp.asarray(triples, jnp.int32),
+        gps_triple_weight=jnp.asarray(np.tile([3.0, 1.5], (4, 1)),
+                                      jnp.float32))
+
+
 def _carry(prob):
     return tprob.from_numpy({k: np.asarray(v)
                              for k, v in prob._asdict().items()}, "cpu")
 
 
 def test_from_numpy_round_trip():
-    prob = _problem()
+    prob = _with_priors(_problem(), 0)
     tp = _carry(prob)
     back = tprob.to_numpy(tp)
-    for k in tprob.CORE_FIELDS:
+    for k in tprob.CORE_FIELDS + tprob.PRIOR_FIELDS:
         np.testing.assert_array_equal(back[k], np.asarray(getattr(prob, k)))
 
 
@@ -175,11 +197,20 @@ def test_scene_to_ba_problem_matches():
 
 
 def test_unported_terms_raise():
+    """The GPS / pose-prior / triple terms, once refused by from_numpy,
+    are carried across with their weights; absent prior fields take the
+    zero-weight defaults (one placeholder triple)."""
     prob = _problem(6)
     arrays = {k: np.asarray(v) for k, v in prob._asdict().items()}
     arrays["gps_weight"] = np.ones_like(arrays["gps_weight"])
-    with pytest.raises(NotImplementedError):
-        tprob.from_numpy(arrays, "cpu")
+    tp = tprob.from_numpy(arrays, "cpu")
+    assert torch.equal(tp.gps_weight, torch.ones_like(tp.gps_weight))
+    assert tlm.has_priors(tp)
+    core = tprob.from_numpy({k: arrays[k] for k in tprob.CORE_FIELDS}, "cpu")
+    assert not tlm.has_priors(core)
+    assert core.gps_triple.shape == (1, 3)
+    assert core.gps_triple_weight.shape == (1, 2)
+    assert core.pose_prior.shape == core.poses.shape
 
 
 def test_perturb_problem_uses_generator():
@@ -283,3 +314,109 @@ def test_cg_stops_at_tolerance_like_a_per_iteration_check(monkeypatch):
     # a loose tolerance stops early: fewer iterations give another x
     few = tlm._cg_solve(prob, terms, rhs, 1e-3, cfg._replace(cg_iterations=2))
     assert not torch.equal(few, every)
+
+
+# ------------------------------------------------- GPS / pose-prior / triples
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prior_terms_cost_matches_jax(seed):
+    """problem_cost with nonzero GPS, pose-prior and triple weights within
+    1e-5 relative of the JAX package's, and each term's residuals within
+    1e-5 of their largest entry."""
+    prob = _with_priors(_problem(20 + seed), seed)
+    tp = _carry(prob)
+    np.testing.assert_allclose(float(tlm.problem_cost(tp, 1.0)),
+                               float(jlm.problem_cost(prob, 1.0)), rtol=1e-5)
+    for name in ("gps_residuals", "pose_prior_residuals",
+                 "gps_triple_residuals"):
+        a = np.asarray(getattr(jlm, name)(prob))
+        np.testing.assert_allclose(getattr(tlm, name)(tp).numpy(), a,
+                                   atol=1e-5 * np.abs(a).max(), err_msg=name)
+
+
+def test_prior_blocks_match_jax():
+    """The prior terms' Gauss-Newton blocks (Hg per camera, Ht per triple)
+    and their rhs within 1e-5 of their largest entry of the JAX
+    package's _gps_prior_blocks."""
+    prob = _with_priors(_problem(17, n_cams=10, n_pts=100), 1)
+    for a, b, name in zip(jlm._gps_prior_blocks(prob),
+                          tlm._gps_prior_blocks(_carry(prob)),
+                          ("Hg", "Ht", "rhs")):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, err_msg=name,
+                                   atol=1e-5 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-4),
+                                       (np.float32, 1e-3)])
+def test_prior_terms_dense_step_matches_jax(dtype, tol):
+    """One dense-Schur LM step (GPS, prior and triple blocks added to S):
+    d_pose, d_intr and d_pt within `tol` of their largest entry of the JAX
+    package's.  In f64 (jax_enable_x64 for the JAX side) the algorithm
+    agrees within 1e-4; in f32 the two packages' Jacobians differ in the
+    last bits and their dense steps differ by 5e-5 to 7e-4 of the largest
+    entry with or without the prior terms (measured over 5 problems), so
+    f32 is held to test_reduced_camera_system_matches' 1e-3."""
+    prob = _with_priors(_problem(15, n_cams=10, n_pts=300, noise_px=1.5), 0)
+    with jax.enable_x64(dtype == np.float64):
+        prob = jax.tree.map(
+            lambda x: jnp.asarray(x, dtype)
+            if jnp.issubdtype(x.dtype, jnp.floating) else x, prob)
+        dj = jax.jit(jlm._assemble_and_solve, static_argnums=2)(
+            prob, jnp.asarray(1e-3, dtype), JLM())
+        dj = [np.asarray(a) for a in dj]
+    assert dj[0].dtype == dtype
+    tp = tprob.from_numpy({k: np.asarray(v)
+                           for k, v in prob._asdict().items()}, "cpu",
+                          dtype=getattr(torch, np.dtype(dtype).name))
+    dt = tlm._assemble_and_solve(tp, 1e-3, TLM())
+    for a, b in zip(dj, dt):
+        np.testing.assert_allclose(b.numpy(), a,
+                                   atol=tol * max(np.abs(a).max(), 1e-6))
+
+
+def test_prior_terms_cg_step_matches_jax():
+    """One PCG step with the prior blocks in the matvec and Hg in the
+    block-Jacobi preconditioner (converged to cg_tol 1e-7): within 1e-4
+    of the largest entry of the JAX package's step (measured 1.5e-5), and
+    within 1e-3 of the port's dense-Schur step."""
+    prob = _with_priors(_problem(15, n_cams=10, n_pts=300, noise_px=1.5), 1)
+    cfg_j = JLM(cg_iterations=200, cg_tol=1e-7)
+    cfg_t = TLM(cg_iterations=200, cg_tol=1e-7)
+    dj = jlm._assemble_and_solve_cg(prob, jnp.float32(1e-3), cfg_j)
+    dt = tlm._assemble_and_solve_cg(_carry(prob), 1e-3, cfg_t)
+    for a, b in zip(dj, dt):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a,
+                                   atol=1e-4 * max(np.abs(a).max(), 1e-6))
+    dd = tlm._assemble_and_solve(_carry(prob), 1e-3, TLM())
+    for a, b in zip(dd, dt):
+        a = a.numpy()
+        np.testing.assert_allclose(b.numpy(), a,
+                                   atol=1e-3 * max(np.abs(a).max(), 1e-6))
+
+
+def test_pose_prior_alone_fixes_the_gauge_in_pcg():
+    """Every camera free and no gauge camera: the pose prior alone pins
+    the gauge (as in a submap), and the PCG solve reaches the dense
+    solve's cost."""
+    prob = _problem(16, n_cams=8, n_pts=300)
+    C = prob.poses.shape[0]
+    prob = prob._replace(pose_mut=jnp.ones((C,)), pose_prior=prob.poses,
+                         pose_prior_weight=jnp.ones((C, 6)))
+    tp = _carry(prob)
+    _, info_d = tsolve(tp, TLM(max_iterations=20))
+    _, info_c = tsolve(tp, TLM(max_iterations=20, cg_iterations=50))
+    _, info_j = jsolve(prob, JLM(max_iterations=20, cg_iterations=50))
+    assert info_c["final_cost"] < 0.2 * info_c["initial_cost"]
+    np.testing.assert_allclose(info_c["final_cost"], info_d["final_cost"],
+                               rtol=1e-2)
+    np.testing.assert_allclose(info_c["final_cost"],
+                               float(info_j["final_cost"]), rtol=1e-2)
+
+
+def test_triple_residual_jacobian_is_finite_at_coincident_cameras():
+    """The zero-weight placeholder triple (0, 0, 0) has three coinciding
+    cameras: the sqrt(|v|^2 + eps) guard keeps its Jacobian finite."""
+    poses3 = torch.zeros((1, 3, 6))
+    J, r = tlm._triple_rj(poses3, torch.zeros((1, 3, 3)), torch.ones((1, 2)))
+    assert torch.isfinite(J).all() and torch.isfinite(r).all()

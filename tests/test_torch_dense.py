@@ -90,7 +90,8 @@ def test_driver_matches_jax_driver(tmp_path, scene):
     jax_dir.mkdir()
     imgs = _write_fold(str(mine_dir), left, right)
     _write_fold(str(jax_dir), left, right)
-    clouds = dense.DenseReconstruction(DenseOptions(disp_size=DISP)).run(
+    clouds = dense.DenseReconstruction(DenseOptions(disp_size=DISP),
+                                       device="cpu").run(
         str(mine_dir), image_loader=lambda n: imgs[n])
     jclouds = jdense.DenseReconstruction(JDenseOptions(disp_size=DISP)).run(
         str(jax_dir), image_loader=lambda n: imgs[n])
@@ -134,7 +135,8 @@ def test_cli_dense_refuses(tmp_path, scene):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["dense", str(tmp_path), "--device", "cuda"])
     with pytest.raises(ValueError, match="census"):
-        dense.DenseReconstruction(DenseOptions(method="census"))
+        dense.DenseReconstruction(DenseOptions(method="census"),
+                                  device="cpu")
     with pytest.raises(SystemExit):
         cli.main(["dense", str(tmp_path), "--method", "census",
                   "--device", "cpu"])

@@ -140,6 +140,30 @@ def test_cli_refuses_missing_cuda(rendered):
         cli.main(["sfm", rendered[0], "--device", "cuda"])
 
 
+@pytest.mark.parametrize("entry", ["Database", "MatchGraphBuilder",
+                                   "IncrementalSfM", "DenseReconstruction"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """Built with no `device`, each entry point takes the card; without
+    one it raises the RuntimeError `cli --device cuda` raises, and runs
+    nothing on the CPU."""
+    import torch
+
+    from metricsfm_tpu_torch.config import DenseOptions, GraphOptions
+    from metricsfm_tpu_torch.models.dense import DenseReconstruction
+    from metricsfm_tpu_torch.models.match_graph import MatchGraphBuilder
+    build = {
+        "Database": lambda: Database(str(tmp_path), _cfg().database),
+        "MatchGraphBuilder": lambda: MatchGraphBuilder(GraphOptions()),
+        "IncrementalSfM": lambda: IncrementalSfM({}, {}, _cfg()),
+        "DenseReconstruction": lambda: DenseReconstruction(DenseOptions()),
+    }[entry]
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+
+
 def test_reads_jax_feature_store(rendered, tmp_path):
     """Features extracted by the JAX Database are read and matched by the
     port; the JAX Database reads the port's store back."""

@@ -65,7 +65,7 @@ def _run(monkeypatch, out, feats, pairs, stop_after=None):
     monkeypatch.setattr(tmg, "verify_pairs", fake_verify)
     monkeypatch.setattr(fstore, "write_image_matches", spy_write)
     builder = tmg.MatchGraphBuilder(GraphOptions(), out_fold=str(out),
-                                    batch_pairs=B)
+                                    batch_pairs=B, device="cpu")
     try:
         return verified, writes, builder.build(feats, pairs)
     except _Stop:

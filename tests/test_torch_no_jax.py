@@ -27,6 +27,10 @@ MODULES = [
     "metricsfm_tpu_torch.utils.synth",
     "metricsfm_tpu_torch.utils.utm",
     "metricsfm_tpu_torch.ops.matching",
+    "metricsfm_tpu_torch.ops.five_point",
+    "metricsfm_tpu_torch.ops.polynomial",
+    "metricsfm_tpu_torch.parallel.submap_ba",
+    "metricsfm_tpu_torch.utils.device",
 ]
 
 
