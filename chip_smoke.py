@@ -11,7 +11,9 @@ and the script exits non-zero:
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, and time both beside the kernel's
      bound: knn2 (2a) at the sfm verify batch (and timed at the aerial
-     batch, 32 pairs of 2048); knn2_int8 (2b) at the matching-throughput
+     batch, 32 pairs of 2048), and at the street re-match batch (32 pairs
+     of 8,192 x 8,192 x 128, checked and timed beside its bound, its plain
+     version and the bf16 product alone); knn2_int8 (2b) at the matching-throughput
      shape (96 pairs of 4096 x 4096 x 128), a ragged masked pair, one
      valid column, a duplicate-best tie and N2 = 9000, exact on idx and
      both distances, timed through its wrapper, alone, and its fused
@@ -75,6 +77,20 @@ and the script exits non-zero:
      hierarchical submap BA; gates as phase 9 and at least one
      hierarchical full BA; its stage table shows the `sfm/ba_solve/hier`
      span;
+ 11a. the street path, `cli slam` with the street preset (no re-match,
+     the reference's default), on a synthetic street sequence written in
+     the reference's SLAM-GPS formats: 1,000 keyframes of a 1280x720 frame
+     at 2 m along a 2 km road with gentle turns, 50,000 facade points;
+     gates: every keyframe kept, median UTM error < 1.0 m, pose.qin of
+     1,000 rows, the GPS BA by the PCG solve;
+ 11b. the street re-match path, `SLAMGPS(street_preset()).run(fold,
+     rematch=True)` on 100 keyframes of a street canyon rendered at
+     1280x720 on the card (SIFT up to 8,192 keypoints, window priors, the
+     re-match through 2a, retriangulation, dense GPS BA), with the 2a count
+     reset just before and read just after; gates: median UTM error < 1.0
+     m, >= 1,000 tracks of >= 3 views, 100 undistorted images, pose.qin of
+     100 rows; then 2a against its plain version on 32 pairs of the run's
+     own keyframe descriptors (ragged N);
  10. print the paths' numbers, the kernel table (2a-2h, launches summed
      over the paths), the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
@@ -285,6 +301,8 @@ def knn2_phase():
         raise AssertionError("duplicate-best tie not resolved to the lower "
                              "column with second == best")
 
+    street, street_err = knn2_street(rng)
+    errs.append(street_err)
     # time kernel vs plain at the main path's verify batch
     aerial_ms = knn2_time_aerial(rng)
     store_t = torch.tensor(store, device=dev).to(torch.bfloat16)
@@ -317,7 +335,47 @@ def knn2_phase():
             "replaces": "metricsfm_tpu/ops/pallas/match_kernel.py:45",
             "max_abs_err": max(errs), "ms": min(ms, ms2),
             "plain_ms": min(plain_ms, plain_ms2), **b, "library_ms": None,
-            "product_only_ms": prod_ms, "aerial_batch_ms": aerial_ms}
+            "product_only_ms": prod_ms, "aerial_batch_ms": aerial_ms,
+            **street}
+
+
+def knn2_street(rng):
+    """2a at the street re-match batch: 32 pairs of 8,192 x 8,192 x 128
+    (the keyframes' 8,192 keypoints, no resize), ~3% rows masked, query
+    image k + 1 against database image k as the re-match runs them: held
+    to the plain version, then timed beside its bound, the plain version
+    and the bf16 product alone."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import matching
+
+    B, N = 32, 8192
+    store = unit_store(rng, B + 1, N)
+    mask = rng.uniform(size=(B + 1, N)) > 0.03
+    ii = np.arange(B, dtype=np.int32)
+    err = compare_knn2(store, mask, ii + 1, ii, f"street B={B} N={N}")[0]
+    dev = torch.device("cuda")
+    st = torch.tensor(store, device=dev).to(torch.bfloat16)
+    del store
+    mk = torch.tensor(mask, device=dev)
+    q = torch.tensor(ii + 1, device=dev)
+    d = torch.tensor(ii, device=dev)
+    ms = min(cuda_time_ms(lambda: matching.knn2_gather(st, mk, q, d))
+             for _ in range(2))
+    plain_ms = cuda_time_ms(lambda: matching.knn2_reference(st, mk, q, d),
+                            reps=3, warmup=1)
+    a_t, bt_t = st[q.long()], st[d.long()].transpose(1, 2)
+    prod_ms = cuda_time_ms(lambda: torch.matmul(a_t, bt_t), reps=5)
+    del a_t, bt_t
+    flop = 2.0 * B * N * N * 128
+    b = bound(flop, PEAK_BF16, nbytes_of(st, mk, q, d) + B * N * 12)
+    print(f"  knn2 street batch B={B} N={N}: kernel {ms:.4f} ms "
+          f"({flop / (ms * 1e9):.1f} TFLOP/s, {b['bound_ms'] / ms:.1%} of "
+          f"the bound), plain {plain_ms:.3f} ms, {bound_text(b)}; product "
+          f"only (bf16 torch.matmul): {prod_ms:.3f} ms", flush=True)
+    return {"street_batch_ms": ms, "street_plain_ms": plain_ms,
+            "street_bound_ms": b["bound_ms"], "street_bound_by": b["bound_by"],
+            "street_product_only_ms": prod_ms}, err
 
 
 def knn2_tiling_cases(rng):
@@ -1678,6 +1736,447 @@ def profile_phase(out_dir, n_cams=8, width=1024, height=768, max_kp=4096):
                 for e in sgm_events), flush=True)
 
 
+# -- the street path (phase 11) ----------------------------------------------
+# A synthetic street sequence in the reference's SLAM-GPS formats: keyframes
+# of a 1280x720 GoPro frame (focal 800 px) written at resize_ratio 0.5, in a
+# SLAM frame that is a similarity of the ground truth (scale 0.3), with GPS
+# from the true centres (0.1 m noise across the road plane).
+STREET_W, STREET_H, STREET_F, STREET_RESIZE = 1280, 720, 800.0, 0.5
+STREET_LATLON = (40.0, -83.0)
+
+
+def street_track(n, step=2.0, turn=0.35, period=600.0, wiggle=0.0,
+                 wiggle_period=60.0):
+    """Keyframe centres (n, 3) and headings (n,) of a camera 1.5 m up
+    driving at `step` m a keyframe: heading turn * sin(2 pi s / period)
+    (gentle turns, so the alignment's turn weights are not flat), or with
+    turn = 0 a straight road with a lateral wiggle."""
+    import numpy as np
+
+    s = np.arange(n) * step
+    if turn:
+        psi = turn * np.sin(2 * np.pi * s / period)
+        xy = np.zeros((n, 2))
+        xy[1:] = np.cumsum(step * np.stack([np.cos(psi[:-1]),
+                                            np.sin(psi[:-1])], 1), 0)
+    else:
+        y = wiggle * np.sin(2 * np.pi * s / wiggle_period)
+        dy = wiggle * 2 * np.pi / wiggle_period * np.cos(
+            2 * np.pi * s / wiggle_period)
+        xy = np.stack([s, y], 1)
+        psi = np.arctan(dy)
+    z = 1.5 + 0.05 * np.sin(s / 37.0)
+    return np.concatenate([xy, z[:, None]], 1), psi
+
+
+def street_rotations(psi):
+    """World->camera rotations looking along the heading: rows right,
+    down, forward (x east, y north, z up)."""
+    import numpy as np
+
+    c, s = np.cos(psi), np.sin(psi)
+    zero = np.zeros_like(psi)
+    right = np.stack([s, -c, zero], 1)
+    down = np.stack([zero, zero, zero - 1.0], 1)
+    fwd = np.stack([c, s, zero], 1)
+    return np.stack([right, down, fwd], 1)
+
+
+def street_facade_points(centers, psi, n_pts, rng, step=2.0):
+    """Points on both facades of the road of `street_track`: 6-10 m either
+    side of the centre line, 0-10 m up, spread along its length.  Returns
+    the points and their distance along the road."""
+    import numpy as np
+
+    L = (len(centers) - 1) * step
+    s = rng.uniform(0, L + 30.0, n_pts)
+    k = np.clip(s / step, 0, len(centers) - 1)
+    k0 = np.minimum(k.astype(int), len(centers) - 2)
+    fr = (k - k0)[:, None]
+    base = centers[k0] * (1 - fr) + centers[k0 + 1] * fr
+    extra = np.maximum(s - L, 0.0)[:, None]
+    head = psi[k0] * (1 - fr[:, 0]) + psi[k0 + 1] * fr[:, 0]
+    d = np.stack([np.cos(head), np.sin(head), 0 * head], 1)
+    nrm = np.stack([-np.sin(head), np.cos(head), 0 * head], 1)
+    side = rng.choice([-1.0, 1.0], n_pts)[:, None]
+    pts = base + extra * d + side * rng.uniform(6.0, 10.0, (n_pts, 1)) * nrm
+    pts[:, 2] = rng.uniform(0.0, 10.0, n_pts)
+    return pts, s
+
+
+def write_street_fold(fold, centers, Rs, pts, rng, window=None,
+                      width=STREET_W, height=STREET_H, focal=STREET_F):
+    """Write KeyFramePts.txt / pos.txt / rgb.txt for true poses (Rs,
+    centers) and points pts, as the reference's SLAM front end leaves them:
+    keyframes and points in a SLAM frame that is a similarity of the truth,
+    observations in 640x360 pixels (the width x height = 1280x720 frame
+    at resize 0.5) with 0.3 full-resolution pixels of noise, the points a
+    keyframe sees in front of it up to 40 m; GPS with 0.1 m of noise
+    across the road plane.  `window` (keyframe index -> indices of
+    points sorted along the road) bounds each keyframe's visibility test.
+    Returns the true UTM easting / northing of every keyframe."""
+    import numpy as np
+    from metricsfm_tpu_torch.ops import np_geom
+    from metricsfm_tpu_torch.utils import utm
+
+    os.makedirs(fold, exist_ok=True)
+    zfar, noise_px, gps_noise = 40.0, 0.3, 0.1
+    n = len(centers)
+    r = STREET_RESIZE
+    cx, cy = width / 2.0, height / 2.0
+    s_slam = 0.3
+    R_slam = np_geom.angle_axis_to_matrix(np.array([0.05, 0.3, -0.1]))
+    t_slam = np.array([2.0, -1.0, 0.5])
+    cam_rows = [str(n)]
+    obs_p, obs_c, obs_x, obs_y = [], [], [], []
+    for i in range(n):
+        R = Rs[i]
+        t = -R @ centers[i]
+        sel = np.arange(len(pts)) if window is None else window(i)
+        xc = pts[sel] @ R.T + t
+        z = xc[:, 2]
+        ok = (z > 0.5) & (z < zfar)
+        u = focal * xc[:, 0] / np.where(ok, z, 1.0)
+        v = focal * xc[:, 1] / np.where(ok, z, 1.0)
+        ok &= (np.abs(u) < cx) & (np.abs(v) < cy)
+        k = np.nonzero(ok)[0]
+        obs_p.append(sel[k])
+        obs_c.append(np.full(len(k), i))
+        obs_x.append((u[k] + rng.normal(0, noise_px, len(k))) * r + cx * r)
+        obs_y.append((v[k] + rng.normal(0, noise_px, len(k))) * r + cy * r)
+        R_s = R @ R_slam.T
+        t_s = -R_s @ (s_slam * R_slam @ centers[i] + t_slam)
+        fx = focal * r
+        cam_rows.append(" ".join(
+            [str(i), f"{i * 0.1:.3f}", f"{fx}", f"{fx}", f"{cx * r}",
+             f"{cy * r}"] + [f"{v_:.9f}" for v_ in t_s]
+            + [f"{v_:.9f}" for v_ in R_s.reshape(-1)]))
+    p = np.concatenate(obs_p)
+    order = np.argsort(p, kind="stable")
+    p, c = p[order], np.concatenate(obs_c)[order]
+    x, y = np.concatenate(obs_x)[order], np.concatenate(obs_y)[order]
+    slam_pts = s_slam * pts @ R_slam.T + t_slam
+    starts = np.searchsorted(p, np.arange(len(pts) + 1))
+    lines = [str(len(pts))]
+    for k in range(len(pts)):
+        a, b = starts[k], starts[k + 1]
+        q = slam_pts[k]
+        lines.append(f"{q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {b - a} " + " ".join(
+            f"{c[j]} {x[j]:.4f} {y[j]:.4f}" for j in range(a, b)))
+    with open(os.path.join(fold, "KeyFramePts.txt"), "w") as f:
+        f.write("\n".join(cam_rows + lines))
+    e0, n0, zone = utm.ll_to_utm(*STREET_LATLON)
+    gps = centers[:, :2] + rng.normal(0, gps_noise, (n, 2))
+    with open(os.path.join(fold, "pos.txt"), "w") as f:
+        for i in range(n):
+            lat, lon = utm.utm_to_ll(e0 + gps[i, 0], n0 + gps[i, 1], zone)
+            f.write(f"{i} {lat:.10f} {lon:.10f} {centers[i, 2]:.3f}\n")
+    with open(os.path.join(fold, "rgb.txt"), "w") as f:
+        f.write("# color images\n# keyframes\n# timestamp filename\n")
+        for i in range(n):
+            f.write(f"{i * 0.1:.2f} image/{i:06d}.png\n")
+    return centers[:, :2] + np.array([e0, n0])
+
+
+def street_planes(length, seed=0):
+    """The street canyon of the re-match sequence: two 12 m facades at
+    y = +-7 m and the road, each a textured rectangle (P0, U, V) whose
+    texture is 480-texel `multiscale_texture` tiles laid along the road
+    at 3 cm a texel."""
+    import numpy as np
+    from metricsfm_tpu_torch.utils import synth
+
+    half_width, height, texel, tile = 7.0, 12.0, 0.03, 480
+    rng = np.random.default_rng(seed)
+    x0, x1 = -15.0, length + 60.0
+    n_tiles = int(np.ceil((x1 - x0) / (tile * texel)))
+
+    def tex(rows):
+        t = np.concatenate([synth.multiscale_texture(rng, tile)
+                            for _ in range(n_tiles)], 1)
+        return t[:rows]
+
+    span = np.array([x1 - x0, 0.0, 0.0])
+    w_rows = int(round(2 * half_width / texel))
+    h_rows = int(round(height / texel))
+    if w_rows > tile:
+        raise ValueError("road wider than one texture tile")
+    return [
+        dict(P0=np.array([x0, half_width, 0.0]), U=span,
+             V=np.array([0.0, 0.0, height]), tex=tex(h_rows)),
+        dict(P0=np.array([x0, -half_width, 0.0]), U=span,
+             V=np.array([0.0, 0.0, height]), tex=tex(h_rows)),
+        dict(P0=np.array([x0, -half_width, 0.0]), U=span,
+             V=np.array([0.0, 2 * half_width, 0.0]), tex=tex(w_rows)),
+    ]
+
+
+def render_street(centers, Rs, planes, device="cuda", width=STREET_W,
+                  height=STREET_H, focal=STREET_F):
+    """Render the keyframes (pinhole, pixel centres at +0.5, principal
+    point at the image centre) of a scene of textured rectangles by ray
+    casting on `device`: per pixel the nearest plane hit in front of the
+    camera, its texture sampled bilinearly; a flat sky of 0.6 elsewhere.
+    Returns (n, H, W) uint8."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device(device)
+    xs = (torch.arange(width, device=dev, dtype=torch.float32) + 0.5
+          - width / 2.0) / focal
+    ys = (torch.arange(height, device=dev, dtype=torch.float32) + 0.5
+          - height / 2.0) / focal
+    rays = torch.stack([xs[None, :].expand(height, width),
+                        ys[:, None].expand(height, width),
+                        torch.ones(height, width, device=dev)], -1)
+    texs = [torch.tensor(p["tex"], dtype=torch.float32,
+                         device=dev)[None, None] for p in planes]
+    out = np.zeros((len(centers), height, width), np.uint8)
+    for i in range(len(centers)):
+        R = torch.tensor(Rs[i], dtype=torch.float32, device=dev)
+        C = torch.tensor(centers[i], dtype=torch.float32, device=dev)
+        d = rays @ R                                  # world directions
+        best = torch.full((height, width), float("inf"), device=dev)
+        img = torch.full((height, width), 0.6, device=dev)
+        for p, tx in zip(planes, texs):
+            P0, U, V = (torch.tensor(p[k], dtype=torch.float32, device=dev)
+                        for k in ("P0", "U", "V"))
+            nrm = torch.linalg.cross(U, V)
+            den = d @ nrm
+            t = torch.dot(nrm, P0 - C) / torch.where(
+                den.abs() < 1e-9, torch.full_like(den, 1e-9), den)
+            X = C + t[..., None] * d - P0
+            a = X @ U / torch.dot(U, U)
+            b = X @ V / torch.dot(V, V)
+            hit = (t > 0.1) & (t < best) & (a >= 0) & (a <= 1) & \
+                (b >= 0) & (b <= 1)
+            grid = torch.stack([2 * a - 1, 2 * b - 1], -1)[None]
+            val = F.grid_sample(tx, grid.clamp(-1, 1), mode="bilinear",
+                                align_corners=True)[0, 0]
+            img = torch.where(hit, val, img)
+            best = torch.where(hit, t, best)
+        out[i] = (img.clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+    return out
+
+
+def street_fixed_fold(fold, n=1000, n_pts=50000, seed=0):
+    """The 11a sequence: n keyframes 2 m apart on a gently turning road,
+    n_pts points on its facades, no images.  Returns the true UTM
+    easting / northing of the keyframes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers, psi = street_track(n)
+    pts, along = street_facade_points(centers, psi, n_pts, rng)
+    order = np.argsort(along)
+    pts, along = pts[order], along[order]
+
+    def window(i):       # keyframe i sees at most 40 m ahead
+        lo, hi = np.searchsorted(along, [2.0 * i - 10.0, 2.0 * i + 50.0])
+        return np.arange(lo, hi)
+
+    return write_street_fold(fold, centers, street_rotations(psi), pts, rng,
+                             window=window)
+
+
+def street_rematch_fold(fold, n=100, n_pts=6000, seed=1, device="cuda",
+                        width=STREET_W, height=STREET_H):
+    """The 11b sequence: n keyframes 2 m apart along a straight street
+    canyon (a lateral wiggle of 1 m), rendered at width x height on
+    `device` and written as image/000000.png..., with n_pts SLAM points on
+    its facades and road.  Returns (true UTM easting / northing, render
+    seconds)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    centers, psi = street_track(n, turn=0.0, wiggle=1.0)
+    Rs = street_rotations(psi)
+    planes = street_planes((n - 1) * 2.0)
+    # SLAM points on the two facades and the road, in proportion to area
+    k = rng.choice(3, n_pts, p=[0.37, 0.37, 0.26])
+    a, b = rng.uniform(0, 1, n_pts), rng.uniform(0, 1, n_pts)
+    pts = np.stack([planes[j]["P0"] + a[m] * planes[j]["U"]
+                    + b[m] * planes[j]["V"] for m, j in enumerate(k)])
+    t0 = time.perf_counter()
+    focal = STREET_F * width / STREET_W
+    images = render_street(centers, Rs, planes, device=device, width=width,
+                           height=height, focal=focal)
+    render_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(fold, "image"), exist_ok=True)
+    for i, im in enumerate(images):
+        Image.fromarray(im).save(os.path.join(fold, "image", f"{i:06d}.png"),
+                                 compress_level=1)
+    gt = write_street_fold(fold, centers, Rs, pts, rng, width=width,
+                           height=height, focal=focal)
+    return gt, render_s
+
+
+def street_gates(fold, gt, n):
+    """Read back `cli slam`'s exports: every keyframe kept, pose.qin with n
+    rows, and the median easting / northing error of the exported camera
+    centres (gps_pos.txt, UTM) against the truth.  Returns that error."""
+    import numpy as np
+
+    out = os.path.join(fold, "mtpu_out")
+    with open(os.path.join(out, "pose.qin")) as f:
+        rows = f.read().split("\n")
+    if int(rows[0]) != n or len(rows) - 2 != n:
+        raise AssertionError(f"pose.qin: {rows[0]} / {len(rows) - 2} rows, "
+                             f"want {n}")
+    est = np.loadtxt(os.path.join(out, "gps_pos.txt"))[:, :2]
+    if len(est) != n:
+        raise AssertionError(f"{len(est)}/{n} keyframes kept")
+    err = float(np.median(np.linalg.norm(est - gt, axis=1)))
+    if not err < 1.0:
+        raise AssertionError(f"median UTM error {err} m >= 1.0")
+    if not os.path.exists(os.path.join(fold, "accuracy.txt")):
+        raise AssertionError("no accuracy.txt")
+    return err
+
+
+def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
+    """11a: `cli slam` with the street preset (no re-match, the reference's
+    default) on a street sequence of n keyframes written in the reference
+    formats.  Gates: every keyframe kept, median UTM error < 1.0 m, a
+    pose.qin of n rows, and from 128 keyframes the GPS BA's PCG solve.
+    Returns stats."""
+    import torch
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+    fold = tempfile.mkdtemp(prefix="msf_smoke_street_")
+    try:
+        t0 = time.perf_counter()
+        gt = street_fixed_fold(fold, n, n_pts)
+        write_s = time.perf_counter() - t0
+        GLOBAL_TRACER.reset()
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene = cli.main(["slam", fold, "--device", device])
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        err = street_gates(fold, gt, n)
+    finally:
+        shutil.rmtree(fold, ignore_errors=True)
+    stages = GLOBAL_TRACER.as_dict()
+    pcg = "slam/ba_solve/pcg" in stages
+    print(f"  street {n} keyframes, {n_pts} facade points (written in "
+          f"{write_s:.3f} s): {len(scene.registered)}/{n} kept, "
+          f"{scene.n_points()} points, median UTM error {err:.4f} m; "
+          f"{dt:.3f} s = {n / dt:.4f} keyframes/s; peak "
+          f"{peak / 2**20:.1f} MiB; GPS BA {'PCG' if pcg else 'dense'}",
+          flush=True)
+    print("  stage table:\n" + "\n".join(
+        "    " + ln for ln in GLOBAL_TRACER.report().splitlines()),
+        flush=True)
+    if len(scene.registered) != n:
+        raise AssertionError(f"street: {len(scene.registered)}/{n} kept")
+    if n >= 128 and not pcg:
+        raise AssertionError("street: the GPS BA did not run the PCG solve")
+    return {"keyframes_per_s": n / dt, "seconds": dt, "keyframes": n,
+            "points": scene.n_points(), "median_utm_err_m": err,
+            "peak_bytes": peak, "gps_ba": "pcg" if pcg else "dense",
+            "stages": stages}
+
+
+def street_rematch_phase(n=100, n_pts=6000, min_tracks=1000,
+                         device="cuda", width=STREET_W, height=STREET_H):
+    """11b: the re-match path, `SLAMGPS(street_preset()).run(fold,
+    rematch=True)` on n keyframes rendered at width x height: SIFT (up to
+    8,192 keypoints, no resize), window priors, the re-match through 2a,
+    retriangulation and the GPS BA, with the 2a count reset just before
+    and read just after.  Gates: median UTM error < 1.0 m, at least
+    min_tracks retriangulated tracks of >= 3 views, every keyframe's
+    undistorted copy, pose.qin of n rows.  Then 2a is held against its
+    plain version on a batch of the run's own keyframe descriptors (real,
+    ragged N); those launches are not counted.  Returns (launches, stats,
+    that check's distance error)."""
+    import torch
+    from metricsfm_tpu_torch.config import street_preset
+    from metricsfm_tpu_torch.models import slam_gps
+    from metricsfm_tpu_torch.ops import matching
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER, span
+
+    fold = tempfile.mkdtemp(prefix="msf_smoke_street_rematch_")
+    cuda = torch.device(device).type == "cuda"
+    try:
+        gt, render_s = street_rematch_fold(fold, n, n_pts, device=device,
+                                           width=width, height=height)
+        GLOBAL_TRACER.reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        matching.knn2_gather.launches = 0
+        t0 = time.perf_counter()
+        pipe = slam_gps.SLAMGPS(street_preset(), device=device)
+        with span("slam/run", sync=True):
+            scene = pipe.run(fold, rematch=True)
+        dt = time.perf_counter() - t0
+        launches = {"knn2": matching.knn2_gather.launches}
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        err = street_gates(fold, gt, n)
+        und = os.listdir(os.path.join(fold, "mtpu_out", "undistort_images"))
+        good = [t for t in scene.tracks if not t.is_bad]
+        n3 = sum(len(t.obs) >= 3 for t in good)
+        feats = pipe.feature_extraction(
+            fold, slam_gps.read_slam(os.path.join(fold, "KeyFramePts.txt")))
+        kp = [int(feats[i].mask.sum()) for i in range(n)]
+        ragged_err = ragged_knn2_check(feats, device) if cuda else 0.0
+    finally:
+        shutil.rmtree(fold, ignore_errors=True)
+    print(f"  street re-match {n} keyframes at {width}x{height} (rendered "
+          f"in {render_s:.3f} s), keypoints {min(kp)}-{max(kp)}: "
+          f"{pipe.stats['prior_pairs']} prior pairs, "
+          f"{pipe.stats['verified_pairs']} verified, "
+          f"{pipe.stats['retriangulated']} tracks retriangulated, {n3} "
+          f"kept with >= 3 views; median UTM error {err:.4f} m; {dt:.3f} s "
+          f"= {n / dt:.4f} keyframes/s; peak {peak / 2**20:.1f} MiB; "
+          f"launches {launches}", flush=True)
+    print("  stage table:\n" + "\n".join(
+        "    " + ln for ln in GLOBAL_TRACER.report().splitlines()),
+        flush=True)
+    if n3 < min_tracks:
+        raise AssertionError(f"street re-match: {n3} tracks of >= 3 views "
+                             f"< {min_tracks}")
+    if len(und) != n:
+        raise AssertionError(f"street re-match: {len(und)}/{n} undistorted "
+                             "images")
+    return launches, {
+        "keyframes_per_s": n / dt, "seconds": dt, "keyframes": n,
+        "median_utm_err_m": err, "prior_pairs": pipe.stats["prior_pairs"],
+        "verified_pairs": pipe.stats["verified_pairs"],
+        "tracks_3_views": n3, "keypoints": [min(kp), max(kp)],
+        "peak_bytes": peak, "render_seconds": render_s,
+        "stages": GLOBAL_TRACER.as_dict()}, ragged_err
+
+
+def ragged_knn2_check(feats, device, B=32):
+    """2a against its plain version on the re-match's own store: the
+    keyframes' descriptors padded to a multiple of 128 rows of the longest
+    (each image masked to its own count), pairs (k, k + 1) with k + 1 the
+    query side, as the re-match runs them."""
+    import numpy as np
+
+    n = len(feats)
+    kmax = max(int(feats[i].mask.shape[0]) for i in range(n))
+    N = -(-kmax // 128) * 128
+    m = min(B + 1, n)
+    store = np.zeros((m, N, 128), np.float32)
+    mask = np.zeros((m, N), bool)
+    for r in range(m):
+        k = feats[r].mask.shape[0]
+        store[r, :k] = feats[r].desc
+        mask[r, :k] = feats[r].mask
+    ii = np.arange(m - 1, dtype=np.int32)
+    return compare_knn2(store, mask, ii + 1, ii, f"street keyframes "
+                        f"B={m - 1} N={N} (ragged)")[0]
+
+
 def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1754,15 +2253,23 @@ def main(argv=None):
         big_launches, big_stats = aerial_phase(rows=20, cols=25,
                                                hierarchical=True)
         check_launches(big_launches, "the 500-view aerial path")
+    with phase("11a street path: cli slam, 1,000 keyframes, GPS BA by PCG"):
+        street_stats = street_fixed_phase()
+    with phase("11b street re-match path: 100 rendered keyframes, 2a"):
+        street_launches, rematch_stats, ragged_err = street_rematch_phase()
+        check_launches(street_launches, "the street re-match path")
     # a kernel's launches: the sum of its counts over the paths' timed runs
     for path_launches in (exif_launches, dense_launches, volume_launches,
-                          tput_launches, aerial_launches, big_launches):
+                          tput_launches, aerial_launches, big_launches,
+                          street_launches):
         for k, n in path_launches.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] == "knn2_int8":   # its quantize pass, same row
             row["quantize_launches"] = launches["quantize_pair_int8"]
+        if row["name"] == "knn2":        # the street keyframes' own store
+            row["max_abs_err"] = max(row["max_abs_err"], ragged_err)
     check_launches({r["name"]: r["launches"] for r in rows}, "a path")
     if args.profile:
         with phase("9b profiled end-to-end paths"):
@@ -1781,7 +2288,11 @@ def main(argv=None):
             "aerial": {k: v for k, v in aerial_stats.items()
                        if k != "stages"},
             "aerial_500": {k: v for k, v in big_stats.items()
-                           if k != "stages"}}), flush=True)
+                           if k != "stages"},
+            "street": {k: v for k, v in street_stats.items()
+                       if k != "stages"},
+            "street_rematch": {k: v for k, v in rematch_stats.items()
+                               if k != "stages"}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

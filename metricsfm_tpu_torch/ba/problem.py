@@ -87,7 +87,7 @@ def build_problem(poses, intrs, cam_model, points, track_cam, track_uv,
                   track_mask, track_weight=None, pose_mut=None, intr_mut=None,
                   point_mut=None, gps_pos=None, gps_weight=None,
                   pose_prior=None, pose_prior_weight=None, gps_triple=None,
-                  gps_triple_weight=None, device="cpu",
+                  gps_triple_weight=None, *, device,
                   dtype=torch.float32) -> BAProblem:
     """Assemble a BAProblem from host arrays on `device`, filling default
     masks; every prior term defaults to weight 0 (one zero-weight

@@ -3,16 +3,20 @@
   python -m metricsfm_tpu_torch.cli sfm <image_fold> [--mode web|uav]
       [--out DIR] [--max-kp N] [--no-resize] [--matching all]
       [--device cuda|cpu]
+  python -m metricsfm_tpu_torch.cli slam <fold> [--device cuda|cpu]
+      (KeyFramePts.txt / pos.txt / rgb.txt, optional image/ keyframes)
   python -m metricsfm_tpu_torch.cli dense <fold> [--pose-file F]
       [--disp 128] [--method sgm|elas] [--device cuda|cpu]
 
 Counterparts of `metricsfm_tpu.cli sfm` (the reference's test_sfm.cc
-program) and `metricsfm_tpu.cli dense` (pairwise stereo over the
-consecutive views of a SURE pose file, e.g. the `sfm_sure.txt` that `sfm`
-writes).  `--method sgm` runs on a card through the CUDA kernels of
+program), `metricsfm_tpu.cli slam` (GPS-aided SLAM refinement of a street
+sequence, the reference's test_slam program; writes <fold>/mtpu_out and
+<fold>/accuracy.txt) and `metricsfm_tpu.cli dense` (pairwise stereo over
+the consecutive views of a SURE pose file, e.g. the `sfm_sure.txt` that
+`sfm` writes).  `--method sgm` runs on a card through the CUDA kernels of
 ops/sgm_kernel, with --device cpu through their plain versions; `--method
 elas` is plain torch on either device (the reference has no kernel for
-it).  The slam and calib commands are not ported yet.
+it).  The calib command is not ported yet.
 """
 from __future__ import annotations
 
@@ -80,13 +84,31 @@ def cmd_sfm(args):
                                   scene, kp_xy, names, principal, sizes)
             exports.write_sure(os.path.join(fold, "sfm_sure.txt"), scene,
                                names, principal, sizes)
-            # undistorted image copies (write_undistorted_images) are not
-            # ported yet
+            exports.write_undistorted_images(
+                os.path.join(fold, "undistort_images"), scene,
+                {i: db.image_paths[i] for i in scene.registered},
+                device=device)
         print(f"model {k}: {len(scene.registered)} cams, "
               f"{scene.n_points()} points -> {fold}")
     print("-- stage times --")
     print(GLOBAL_TRACER.report())
     return scenes
+
+
+def cmd_slam(args):
+    """KeyFramePts.txt + pos.txt + rgb.txt -> GPS-aligned, GPS-anchored BA
+    -> exports, with the street preset.  Returns the scene."""
+    from .config import street_preset
+    from .models.slam_gps import SLAMGPS
+    from .utils.tracing import GLOBAL_TRACER, span
+
+    pipe = SLAMGPS(street_preset(), device=_device(args.device))
+    with span("slam/run", sync=True):
+        scene = pipe.run(args.fold, verbose=True)
+    print(f"{len(scene.registered)} cams, {scene.n_points()} points")
+    print("-- stage times --")
+    print(GLOBAL_TRACER.report())
+    return scene
 
 
 def cmd_dense(args):
@@ -124,6 +146,13 @@ def main(argv=None):
                     help="torch device: cuda (default; raises without a "
                     "card) or cpu")
     ps.set_defaults(fn=cmd_sfm)
+
+    pl = sub.add_parser("slam", help="GPS-aided SLAM refinement")
+    pl.add_argument("fold")
+    pl.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default; raises without a "
+                    "card) or cpu")
+    pl.set_defaults(fn=cmd_slam)
 
     pd = sub.add_parser("dense", help="dense pairwise stereo")
     pd.add_argument("fold")

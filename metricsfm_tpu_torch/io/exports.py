@@ -1,8 +1,9 @@
-"""Interop export writers: Bundler/CMVS, OpenMVS, SURE, clouds.
+"""Interop export writers: Bundler/CMVS, OpenMVS, SURE, MSP .qin, clouds,
+undistorted images.
 
 Counterpart of metricsfm_tpu/io/exports.py; the writers are host numpy and
-produce the same files.  write_qin and write_undistorted_images are not
-ported yet and raise.  Format-compatible re-implementations of the reference writers
+produce the same files, except the undistortion warp, which runs on the
+caller's torch device.  Format-compatible re-implementations of the reference writers
 (SfM/src/sfm_incremental.cc:1148-1394 SaveforOpenMVS/SaveforCMVS,
  slam_gps.cc:1533-1571 SaveforMSP, sfm_incremental.cc:1425-1463
  WriteCameraPointsOut) so downstream MVS tools (CMVS/PMVS, OpenMVS
@@ -19,8 +20,9 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
-from ..ops import np_geom
+from ..ops import lie, np_geom
 
 
 def _Rt(scene, img):
@@ -192,15 +194,118 @@ def write_sure(path: str, scene, image_names: Dict[int, str],
 
 def write_qin(path: str, scene, image_names: Dict[int, str],
               cols: int, rows: int, pixel_mm: float = 0.005):
-    """MSP pose.qin (ref SaveforMSP, slam_gps.cc:1533-1571)."""
-    raise NotImplementedError(
-        "write_qin is not ported yet (ROADMAP queue 1, item 'exports')")
+    """MSP pose.qin (ref SaveforMSP, slam_gps.cc:1533-1571): photogrammetry
+    convention (x-axis pi rotation), X-Y-Z Euler angles
+    (RotationMatrixToEulerAngles, basic_funcs.cc:245-249), focal in mm."""
+    imgs = scene.registered
+    m = scene.models[scene.model_of_image[imgs[0]]]
+    R_cv2ph = np.diag([1.0, -1.0, -1.0])
+    Rph = torch.tensor(np.stack([R_cv2ph @ _Rt(scene, im)[0] for im in imgs]),
+                       dtype=torch.float64)
+    euler = lie.matrix_to_euler_xyz(Rph).numpy()
+    with open(path, "w") as f:
+        f.write(f"{len(imgs)}\n")
+        f.write(f"{m.f * pixel_mm:.12f} {0.0:.12f} {0.0:.12f} "
+                f"{pixel_mm} {pixel_mm} {cols} {rows}\n")
+        lines = []
+        for im, e in zip(imgs, euler):
+            c = _center(scene, im)
+            lines.append(f"{image_names.get(im, str(im))}.jpg "
+                         f"{c[0]:.12f} {c[1]:.12f} {c[2]:.12f} "
+                         f"{e[0]:.12f} {e[1]:.12f} {e[2]:.12f}")
+        f.write("\n".join(lines))
+
+
+def write_accuracy(path: str, avg_err: float, mse: float, n_obs: int):
+    """accuracy.txt (ref slam_gps.cc:1582)."""
+    with open(path, "w") as f:
+        f.write(f"{avg_err:.8f} {mse:.8f} {n_obs}\n")
+
+
+def undistort_image(img, f: float, k1: float, k2: float, device=None):
+    """Remove radial distortion from an image by inverse warping.
+
+    Each undistorted output pixel samples the distorted source at the
+    forward-distorted position r_d = r_u (1 + k1 r_u^2 + k2 r_u^4) in
+    normalized (centered, /f) coordinates — the model the whole pipeline
+    uses (ref SaveUndistortedImage, sfm_incremental.cc:1092-1146).
+
+    img: (H, W) or (H, W, C) float array or tensor; the warp runs on
+    `device` (default: the tensor's own, the CPU for a numpy array).
+    Returns a float32 tensor of the same shape on that device.
+    """
+    from ..ops.sift import _bilinear
+
+    arr = torch.as_tensor(img, dtype=torch.float32, device=device)
+    H, W = arr.shape[:2]
+    cx, cy = W / 2.0, H / 2.0
+    ys = torch.arange(H, dtype=torch.float32, device=arr.device)[:, None]
+    xs = torch.arange(W, dtype=torch.float32, device=arr.device)[None, :]
+    xn = ((xs - cx) / f).expand(H, W)
+    yn = ((ys - cy) / f).expand(H, W)
+    r2 = xn * xn + yn * yn
+    factor = 1.0 + r2 * (k1 + k2 * r2)
+    coords = torch.stack([cx + f * xn * factor, cy + f * yn * factor], dim=-1)
+    if arr.dim() == 2:
+        return _bilinear(arr, coords)
+    return torch.stack([_bilinear(arr[..., c], coords)
+                        for c in range(arr.shape[-1])], dim=-1)
 
 
 def write_undistorted_images(fold: str, scene, image_paths: Dict[int, str],
-                             verbose: bool = False):
-    """Undistorted copies of the registered images (ref
-    SaveUndistortedImage, sfm_incremental.cc:1092-1146)."""
-    raise NotImplementedError(
-        "write_undistorted_images is not ported yet (ROADMAP queue 1, "
-        "item 'exports')")
+                             verbose: bool = False, *, device):
+    """Save undistorted copies of the registered images (ref
+    SaveUndistortedImage: fold/undistort_images/, used before every MVS
+    export), warped on `device`.  Images whose file is missing are
+    skipped; k1 = k2 = 0 copies through the same resampling path for
+    uniform output.  Returns the written paths."""
+    from PIL import Image
+
+    os.makedirs(fold, exist_ok=True)
+    written = []
+    for img in scene.registered:
+        path = image_paths.get(img)
+        if path is None or not os.path.exists(path):
+            continue
+        with Image.open(path) as im:
+            src = np.asarray(im, dtype=np.float32) / 255.0
+        m = scene.models[scene.model_of_image[img]]
+        out = undistort_image(src, m.f, m.k1, m.k2, device=device)
+        out8 = torch.clamp(out * 255.0 + 0.5, 0, 255).to(torch.uint8)
+        dst = os.path.join(fold, os.path.basename(path))
+        Image.fromarray(out8.cpu().numpy()).save(dst)
+        written.append(dst)
+        if verbose:
+            print(f"undistorted {path} -> {dst}")
+    return written
+
+
+def write_track_overlay_image(path: str, centers_est: np.ndarray,
+                              centers_gps: np.ndarray, size: int = 800,
+                              dot: int = 3):
+    """GPS-vs-estimate track overlay image (ref GrawGPS/GrawSLAM debug
+    renders, slam_gps.cc:1107-1213): both trajectories projected to the
+    xy plane in one frame, GPS green, estimate red."""
+    from PIL import Image, ImageDraw
+    allp = np.concatenate([centers_est[:, :2], centers_gps[:, :2]])
+    lo = allp.min(axis=0)
+    span = max(float((allp.max(axis=0) - lo).max()), 1e-9)
+    scale = (size - 40) / span
+
+    im = Image.new("RGB", (size, size), (255, 255, 255))
+    d = ImageDraw.Draw(im)
+
+    def to_px(p):
+        q = (p[:2] - lo) * scale + 20
+        return float(q[0]), float(size - q[1])
+
+    for pts, color in ((centers_gps, (0, 160, 0)),
+                       (centers_est, (220, 0, 0))):
+        prev = None
+        for p in pts:
+            x, y = to_px(p)
+            d.ellipse([x - dot, y - dot, x + dot, y + dot], fill=color)
+            if prev is not None:
+                d.line([prev, (x, y)], fill=color, width=1)
+            prev = (x, y)
+    im.save(path)

@@ -12,9 +12,10 @@ from typing import Dict
 import numpy as np
 
 
-def assess(scene, kp_xy: Dict[int, np.ndarray], max_views: int = 16,
-           device="cpu"):
-    """Compute reprojection statistics over all live tracks.
+def assess(scene, kp_xy: Dict[int, np.ndarray], max_views: int = 16, *,
+           device):
+    """Compute reprojection statistics over all live tracks, with the
+    residuals on `device`.
 
     Returns dict: avg_err (px), mse (px^2), n_obs, per_track_rmse (ndarray
     aligned with the problem's track rows), track_rows (scene track ids).

@@ -70,6 +70,21 @@ class PairMatches:
     kp_j: np.ndarray         # (N,) keypoint indices in image j
 
 
+def cg_plan(config, n_images: int):
+    """Solver routing for a BA over n_images cameras: dense Schur below
+    sfm.th_cg_cameras (exact, cheap at small C); matrix-free PCG above
+    it (the dense per-point camera factor is O(P*C)).
+    ba.cg_iterations: -1 = auto-enable at scale (the default), 0 =
+    never, >0 = explicit cap.
+
+    Returns (use_cg, effective_cg_iterations)."""
+    cg_req = config.ba.cg_iterations
+    use_cg = cg_req != 0 and n_images >= config.sfm.th_cg_cameras
+    cg_its = (cg_req if cg_req > 0
+              else config.ba.cg_auto_iterations) if use_cg else 0
+    return use_cg, cg_its
+
+
 class IncrementalSfM:
     """The reference IncrementalSfM::Run loop on a torch device."""
 
@@ -430,21 +445,6 @@ class IncrementalSfM:
         return added
 
     # -- BA + culling ------------------------------------------------------
-    def _cg_plan(self, n_images: int):
-        """Solver routing for a BA over n_images cameras: dense Schur below
-        sfm.th_cg_cameras (exact, cheap at small C); matrix-free PCG above
-        it (the dense per-point camera factor is O(P*C)).
-        ba.cg_iterations: -1 = auto-enable at scale (the default), 0 =
-        never, >0 = explicit cap.
-
-        Returns (use_cg, effective_cg_iterations)."""
-        cg_req = self.cfg.ba.cg_iterations
-        use_cg = (cg_req != 0
-                  and n_images >= self.cfg.sfm.th_cg_cameras)
-        cg_its = (cg_req if cg_req > 0
-                  else self.cfg.ba.cg_auto_iterations) if use_cg else 0
-        return use_cg, cg_its
-
     def _bundle(self, scene: Scene, full: bool, seed_run: bool = False,
                 around_img: Optional[int] = None, final: bool = False):
         """Partial/full bundle adjustment (ref :917-1026, optimizer.cc).
@@ -538,7 +538,7 @@ class IncrementalSfM:
             kp_xy, max_views=16, mutable_images=mutable,
             weight_multiview=weight, images=images, tracks=local_tracks,
             device=self.device)
-        use_cg, cg_its = self._cg_plan(len(kp_imgs))
+        use_cg, cg_its = cg_plan(self.cfg, len(kp_imgs))
         base_cfg = self._lm_cfg._replace(cg_iterations=cg_its)
         self.stats["cg_solves"] += int(use_cg)
         if full:

@@ -89,6 +89,26 @@ def verify_pairs(opts: GraphOptions, desc, xy, mask, ii, jj, generator):
     return keep & ok[:, None], idx2, ok
 
 
+def descriptor_store(features, imgs, device):
+    """The device store of images `imgs`: every image padded to one
+    keypoint budget N (a multiple of 128), descriptors (M, N, D) as bf16,
+    coordinates (M, N, 2) and masks (M, N), uploaded once."""
+    kmax = max(int(features[i].mask.shape[0]) for i in imgs)
+    N = -(-kmax // 128) * 128
+    D = features[imgs[0]].desc.shape[1]
+    desc = np.zeros((len(imgs), N, D), np.float32)
+    xy = np.zeros((len(imgs), N, 2), np.float32)
+    mask = np.zeros((len(imgs), N), bool)
+    for r, i in enumerate(imgs):
+        f = features[i]
+        k = f.mask.shape[0]
+        desc[r, :k] = f.desc
+        xy[r, :k] = f.xy
+        mask[r, :k] = f.mask
+    return (torch.from_numpy(desc).to(torch.bfloat16).to(device),
+            torch.from_numpy(xy).to(device), torch.from_numpy(mask).to(device))
+
+
 class MatchGraphBuilder:
     """Build the verified match graph over candidate pairs (batched)."""
 
@@ -100,25 +120,6 @@ class MatchGraphBuilder:
         self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
-
-    def _upload_store(self, features, imgs):
-        """Pad every image to one keypoint budget N (a multiple of 128) and
-        upload descriptors (bf16), coordinates and masks once."""
-        kmax = max(int(features[i].mask.shape[0]) for i in imgs)
-        N = -(-kmax // 128) * 128
-        D = features[imgs[0]].desc.shape[1]
-        desc = np.zeros((len(imgs), N, D), np.float32)
-        xy = np.zeros((len(imgs), N, 2), np.float32)
-        mask = np.zeros((len(imgs), N), bool)
-        for r, i in enumerate(imgs):
-            f = features[i]
-            k = f.mask.shape[0]
-            desc[r, :k] = f.desc
-            xy[r, :k] = f.xy
-            mask[r, :k] = f.mask
-        dev = self.device
-        return (torch.from_numpy(desc).to(torch.bfloat16).to(dev),
-                torch.from_numpy(xy).to(dev), torch.from_numpy(mask).to(dev))
 
     def build(self, features, pairs: List[Tuple[int, int]],
               verbose: bool = False, owner=None
@@ -171,7 +172,8 @@ class MatchGraphBuilder:
         if todo:
             imgs = sorted({i for p in todo for i in p})
             row_of = {im: r for r, im in enumerate(imgs)}
-            desc_all, xy_all, mask_all = self._upload_store(features, imgs)
+            desc_all, xy_all, mask_all = descriptor_store(features, imgs,
+                                                          self.device)
             B = self.batch_pairs
             n_batches = -(-len(todo) // B)
             for bi in range(n_batches):

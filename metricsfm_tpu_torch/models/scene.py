@@ -86,6 +86,18 @@ class Scene:
         self._obs_np = None          # cached np conversion (prefix-stable)
         self._bad: List[bool] = []   # parallel to tracks (mark_bad syncs)
 
+    def reset_tracks(self):
+        """Drop all tracks (SLAM retriangulation rebuilds from scratch): the
+        observation log, the bad mask and every keypoint's track index go
+        with them."""
+        self.tracks = []
+        self._obs_t, self._obs_i, self._obs_k = [], [], []
+        self._obs_np = None
+        self._bad = []
+        for img, k2t in self.kp_to_track.items():
+            k2t.fill(-1)
+            self._bump(img)
+
     def bad_mask(self) -> np.ndarray:
         """(n_tracks,) bool; True = culled."""
         return np.asarray(self._bad, bool) if self._bad \
@@ -179,7 +191,7 @@ class Scene:
     def to_ba_problem(self, kp_xy: Dict[int, np.ndarray], max_views: int = 16,
                       mutable_images=None, mutable_points=None,
                       weight_multiview: float = 1.0, dtype=np.float32,
-                      images=None, tracks=None, device="cpu"):
+                      images=None, tracks=None, *, device):
         """Build a fixed-shape BAProblem from the live tracks.
 
         Args:

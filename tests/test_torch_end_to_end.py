@@ -92,14 +92,15 @@ def test_focal_selfcalibration(reconstruction):
 def test_reprojection_error(reconstruction):
     _, feats, _, scenes, _ = reconstruction
     scene = _best(scenes)
-    stats = accuracy.assess(scene, {i: feats[i].xy for i in scene.registered})
+    stats = accuracy.assess(scene, {i: feats[i].xy for i in scene.registered},
+                            device="cpu")
     assert stats["n_obs"] > 1500
     assert stats["avg_err"] < 1.0, f"avg reproj {stats['avg_err']:.3f}px"
 
 
 def test_cli_sfm_runs_and_exports(rendered, reconstruction, capsys):
     """The CLI on the same folder (features and matches resume from the
-    store), with the stage table and every ported export."""
+    store), with the stage table and every export of the JAX `cmd_sfm`."""
     fold, _ = rendered
     scenes = cli.main(["sfm", fold, "--mode", "web", "--max-kp", "2048",
                        "--no-resize", "--matching", "all", "--device", "cpu"])
@@ -111,6 +112,11 @@ def test_cli_sfm_runs_and_exports(rendered, reconstruction, capsys):
               "sfm_sure.txt", "cams.txt", "pts.txt"]:
         assert os.path.exists(os.path.join(model, f)), f
     assert os.path.isdir(os.path.join(model, "cmvs", "cmvs0", "txt"))
+    # undistorted copies of every registered view, named as the inputs
+    und = os.path.join(model, "undistort_images")
+    assert sorted(os.listdir(und)) == sorted(
+        n for n in os.listdir(fold) if n.endswith(".png"))
+    assert len(os.listdir(und)) == N_CAMS
     with open(os.path.join(model, "bundle.rd.out")) as fh:
         header = fh.readlines()[1].split()
     assert int(header[0]) == N_CAMS

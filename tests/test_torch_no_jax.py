@@ -31,6 +31,8 @@ MODULES = [
     "metricsfm_tpu_torch.ops.polynomial",
     "metricsfm_tpu_torch.parallel.submap_ba",
     "metricsfm_tpu_torch.utils.device",
+    "metricsfm_tpu_torch.models.slam_gps",
+    "metricsfm_tpu_torch.ops.homography",
 ]
 
 

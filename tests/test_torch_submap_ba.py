@@ -208,14 +208,14 @@ def test_hierarchical_ba_matches_jax():
     the JAX package's on the same scene; the camera centers land near the
     truth."""
     js, ts, kp_xy, gt = _noisy_scenes(2, 16, n_pts=400)
-    before = tassess(ts, kp_xy)["avg_err"]
+    before = tassess(ts, kp_xy, device="cpu")["avg_err"]
     jsub.hierarchical_ba(js, kp_xy, max_cams=8, overlap=3, max_views=8,
                          cfg=JLM(max_iterations=20))
     info = tsub.hierarchical_ba(ts, kp_xy, max_cams=8, overlap=3,
                                 max_views=8, cfg=TLM(max_iterations=20))
     assert len(info["iterations"]) == 3
     after_j = jassess(js, kp_xy)["avg_err"]
-    after_t = tassess(ts, kp_xy)["avg_err"]
+    after_t = tassess(ts, kp_xy, device="cpu")["avg_err"]
     assert after_t < 1.0 and after_t < 0.5 * before, (before, after_t)
     assert after_t <= 1.1 * after_j, (after_t, after_j)
     err = [np.linalg.norm(jnpg.camera_center(ts.poses[i])
@@ -255,7 +255,8 @@ def test_incremental_hierarchical_full_ba_matches_jax():
     trec = tsfm.run(max_models=1)[0]
     assert len(trec.registered) == len(jrec.registered) == 6
     assert tsfm.stats["full_ba_hier"] == jsfm.stats["full_ba_hier"] >= 1
-    st = tassess(trec, {i: feats[i].xy for i in trec.registered})
+    st = tassess(trec, {i: feats[i].xy for i in trec.registered},
+                 device="cpu")
     assert st["avg_err"] < 2.0, st["avg_err"]
     assert trec.n_points() > 150
 
