@@ -50,6 +50,13 @@ and the script exits non-zero:
      registered, ATE < 0.05, the 5-point RANSAC ran; then time the 5-point
      pieces on the card (128 batched 5x9 SVDs, the 128-sample solve, the
      RANSAC with its refits);
+  4c. drive `cli sfm` with the user's defaults (web mode, no --matching,
+     so BoW candidates: vocabulary, word bags, top-k similarity, the
+     word-seed gate) on 24 rendered 1024x768 views (arc step 0.03 rad),
+     4096 keypoints, twice: a warm-up with --debug-matches, then timed,
+     the knn2 count reset just before and read just after each; gates:
+     24/24 registered, ATE < 0.05, voctree.npz and 24 word files, BoW
+     candidates matched through 2a, renders written by the warm-up;
   5. drive `metricsfm_tpu_torch.cli dense` (SGM, the fused path) on a
      synthetic rectified 768x1024 pair with known disparity (24 px
      background, 72 px block), D=128, written through the SURE pose
@@ -77,6 +84,10 @@ and the script exits non-zero:
      hierarchical submap BA; gates as phase 9 and at least one
      hierarchical full BA; its stage table shows the `sfm/ba_solve/hier`
      span;
+ 9d. the aerial path of phase 9 with vocabulary-tree candidates
+     ("feature", BASELINE.json config 3's strategy) in place of GPS priori:
+     the word stage runs as its own span (`sfm/build_words`) before
+     build_match_graph; gates as phase 9 and a trained vocabulary;
  11a. the street path, `cli slam` with the street preset (no re-match,
      the reference's default), on a synthetic street sequence written in
      the reference's SLAM-GPS formats: 1,000 keyframes of a 1280x720 frame
@@ -1342,6 +1353,100 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     return launches, stats
 
 
+def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
+                   arc_step=0.03):
+    """4c: `cli sfm` with the user's defaults (web mode, no --matching: BoW
+    candidates above 12 images) on `n_cams` rendered views, twice in fresh
+    folders: a warm-up with --debug-matches (gate: renders written) and a
+    timed run without.  `arc_step` 0.03 rad keeps the 24-view arc on the
+    planes (>= 90 % of every view).  Returns the timed run's (launches,
+    stats)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.config import PRESETS
+    from metricsfm_tpu_torch.io import store as fstore
+    from metricsfm_tpu_torch.models.database import Database
+    from metricsfm_tpu_torch.models.match_graph import candidates_feature
+    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.utils import synth
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+    gt = synth.render_scene(seed=0, n_cams=n_cams, width=width,
+                            height=height, focal=1.1 * width,
+                            arc_step=arc_step)
+    cfg = PRESETS["web"]()
+    db_opts = dataclasses.replace(cfg.database, resize=False,
+                                  max_keypoints=max_kp)
+    for run, debug in enumerate((True, False)):
+        fold = tempfile.mkdtemp(prefix="msf_smoke_web_")
+        try:
+            synth.write_scene_images(fold, gt)
+            GLOBAL_TRACER.reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            matching.knn2_gather.launches = 0
+            t0 = time.perf_counter()
+            scenes = cli.main(["sfm", fold, "--no-resize", "--max-kp",
+                               str(max_kp), "--device", "cuda"]
+                              + (["--debug-matches"] if debug else []))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {"knn2": matching.knn2_gather.launches}
+            peak = torch.cuda.max_memory_allocated()
+            # what the run stored: the vocabulary, the word bags, renders;
+            # the candidates before and after the word-seed gate are
+            # recounted from those stores (nothing is retrained)
+            out = os.path.join(fold, "mtpu_db")
+            voc = fstore.read_vocabulary(out, "cuda")
+            n_word_files = sum(os.path.exists(os.path.join(
+                out, f"{i}_words.npz")) for i in range(n_cams))
+            renders = os.path.join(out, "match_renders")
+            n_renders = len(os.listdir(renders)) \
+                if os.path.isdir(renders) else 0
+            cands, kept = candidates_feature(
+                Database(fold, db_opts, device="cuda"), cfg.graph, "cuda")
+        finally:
+            shutil.rmtree(fold, ignore_errors=True)
+        if not scenes:
+            raise AssertionError("web: no model reconstructed")
+        best = max(scenes, key=lambda s: len(s.registered))
+        est = np.stack([np_geom.camera_center(best.poses[i])
+                        for i in best.registered])
+        ate = synth.ate_vs_gt(est, gt["centers"][best.registered])
+        label = "warm-up, --debug-matches" if debug else "timed"
+        print(f"  web run {run} ({label}): vocabulary "
+              f"{voc.n_words if voc is not None else 0} words, "
+              f"{n_word_files} word files; {len(cands)} candidate pairs, "
+              f"{len(kept)} after the word-seed gate; "
+              f"{len(best.registered)}/{n_cams} registered, "
+              f"{best.n_points()} points, ATE {ate:.5f}, {dt:.3f} s = "
+              f"{n_cams / dt:.4f} images/s, peak {peak / 2**20:.1f} MiB, "
+              f"launches {launches}, renders {n_renders}", flush=True)
+        if voc is None or n_word_files != n_cams:
+            raise AssertionError(f"web: vocabulary {voc is not None}, "
+                                 f"{n_word_files}/{n_cams} word files")
+        if not kept or launches["knn2"] < 1:
+            raise AssertionError("web: the feature branch matched nothing")
+        if debug and n_renders < 1:
+            raise AssertionError("web: --debug-matches wrote no render")
+        if len(best.registered) != n_cams:
+            raise AssertionError(f"web: registered {len(best.registered)}/"
+                                 f"{n_cams}")
+        if ate >= 0.05:
+            raise AssertionError(f"web: ATE {ate} >= 0.05")
+        stats = {"images_per_s": n_cams / dt, "seconds": dt, "ate": ate,
+                 "peak_bytes": peak, "words": voc.n_words,
+                 "candidate_pairs": len(cands),
+                 "pairs_after_word_gate": len(kept), "renders": n_renders,
+                 "stages": GLOBAL_TRACER.report()}
+    print("  stage table (timed run):\n" + "\n".join(
+        "    " + ln for ln in stats["stages"].splitlines()), flush=True)
+    return launches, stats
+
+
 def write_exif_jpegs(fold, images, focal_px):
     """The rendered views as JPEGs (quality 95) whose EXIF carries the
     render's focal: FocalLength in mm with FocalPlaneXResolution of 2540
@@ -1482,11 +1587,12 @@ def throughput_phase(n_pairs=96, n_kp=4096, iters=6):
 
 
 def aerial_setup(rows=10, cols=20, width=640, height=480, max_kp=2048,
-                 device="cuda"):
+                 device="cuda", matching="priori"):
     """The JAX bench's bench_e2e_aerial configuration (bench.py:321-390):
     a lawnmower survey of rows x cols views rendered on the card, and the
-    UAV preset without resizing, `max_kp` keypoints, GPS-priori candidates.
-    Returns (scene, config, render seconds)."""
+    UAV preset without resizing, `max_kp` keypoints, GPS-priori candidates
+    (or `matching="feature"`: vocabulary-tree candidates, BASELINE.json
+    config 3's strategy).  Returns (scene, config, render seconds)."""
     import dataclasses
 
     from metricsfm_tpu_torch.config import PRESETS
@@ -1501,20 +1607,26 @@ def aerial_setup(rows=10, cols=20, width=640, height=480, max_kp=2048,
         cfg,
         database=dataclasses.replace(cfg.database, resize=False,
                                      max_keypoints=max_kp),
-        graph=dataclasses.replace(cfg.graph, matching_type="priori"))
+        graph=dataclasses.replace(cfg.graph, matching_type=matching))
     return gt, cfg, render_s
 
 
 def aerial_run(gt, cfg, device="cuda"):
     """One run of the aerial path on the views written as PNGs into a fresh
     folder: Database -> build_match_graph (priori candidates from the
-    ground-truth centres) -> IncrementalSfM.run, each stage a span of the
-    global tracer.  Returns (scenes, the IncrementalSfM, verified pairs,
-    seconds)."""
+    ground-truth centres, or with "feature" candidates the word stage first,
+    `sfm/build_words`, which build_match_graph then resumes) ->
+    IncrementalSfM.run, each stage a span of the global tracer.  Returns
+    (scenes, the IncrementalSfM, verified pairs, seconds, candidates), where
+    candidates = (vocabulary words or 0, candidate pairs, pairs after the
+    word-seed gate), counted after the timed run from its stores."""
     import torch
+    from metricsfm_tpu_torch.io import store as fstore
     from metricsfm_tpu_torch.models.database import Database
     from metricsfm_tpu_torch.models.incremental import IncrementalSfM
-    from metricsfm_tpu_torch.models.match_graph import build_match_graph
+    from metricsfm_tpu_torch.models.match_graph import (build_match_graph,
+                                                        candidates_feature,
+                                                        candidates_gps)
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import span
 
@@ -1528,6 +1640,10 @@ def aerial_run(gt, cfg, device="cuda"):
         with span("sfm/feature_extraction", sync=True):
             db = Database(fold, cfg.database, device=dev)
             db.feature_extraction()
+        feature = cfg.graph.matching_type == "feature"
+        if feature:
+            with span("sfm/build_words", sync=True):
+                db.build_words()
         with span("sfm/match_graph", sync=True):
             matches = build_match_graph(db, cfg,
                                         priori_utm=gt["centers"][:, :2])
@@ -1537,33 +1653,42 @@ def aerial_run(gt, cfg, device="cuda"):
             scenes = sfm.run()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        return scenes, sfm, len(matches), time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if feature:
+            cands, kept = candidates_feature(db, cfg.graph, dev)
+            cand = (fstore.read_vocabulary(db.out, dev).n_words,
+                    len(cands), len(kept))
+        else:
+            n = len(candidates_gps(gt["centers"][:, :2], cfg.graph.knn))
+            cand = (0, n, n)
+        return scenes, sfm, len(matches), dt, cand
     finally:
         shutil.rmtree(fold, ignore_errors=True)
 
 
-def aerial_phase(rows=10, cols=20, hierarchical=False):
-    """Run the aerial path once on a rows x cols survey, with the kernel-2a
-    launch count reset just before and read just after.  Gates (bench.py:
-    389): >= 95 % of the views registered in one model, ATE < 0.05, and
-    the PCG camera solve ran; with `hierarchical`, also at least one
-    periodic full BA through hierarchical submap BA.  Returns (launches,
-    stats)."""
+def aerial_phase(rows=10, cols=20, hierarchical=False, matching="priori"):
+    """Run the aerial path once on a rows x cols survey with `matching`
+    candidates ("priori" or "feature"), with the kernel-2a launch count
+    reset just before and read just after.  Gates (bench.py:389): >= 95 %
+    of the views registered in one model, ATE < 0.05, and the PCG camera
+    solve ran; with `hierarchical`, also at least one periodic full BA
+    through hierarchical submap BA; with "feature", a vocabulary.  Returns
+    (launches, stats)."""
     import numpy as np
     import torch
-    from metricsfm_tpu_torch.models.match_graph import candidates_gps
-    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.ops import matching as ops_matching
+    from metricsfm_tpu_torch.ops import np_geom
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
 
-    gt, cfg, render_s = aerial_setup(rows=rows, cols=cols)
+    gt, cfg, render_s = aerial_setup(rows=rows, cols=cols, matching=matching)
     n_cams = len(gt["images"])
-    n_cand = len(candidates_gps(gt["centers"][:, :2], cfg.graph.knn))
     GLOBAL_TRACER.reset()
     torch.cuda.reset_peak_memory_stats()
-    matching.knn2_gather.launches = 0
-    scenes, sfm, n_verified, dt = aerial_run(gt, cfg)
-    launches = {"knn2": matching.knn2_gather.launches}
+    ops_matching.knn2_gather.launches = 0
+    scenes, sfm, n_verified, dt, (n_words, n_cand, n_kept) = \
+        aerial_run(gt, cfg)
+    launches = {"knn2": ops_matching.knn2_gather.launches}
     peak = torch.cuda.max_memory_allocated()
     if not scenes:
         raise AssertionError("aerial: no model reconstructed")
@@ -1573,10 +1698,13 @@ def aerial_phase(rows=10, cols=20, hierarchical=False):
     ate = float(synth.ate_vs_gt(est, gt["centers"][reg]))
     stages = GLOBAL_TRACER.report()
     h, w = gt["images"].shape[1:]
+    words = (f"{n_words} words, {n_kept} after the word-seed gate, "
+             if matching == "feature" else "")
     print(f"  aerial {n_cams} views at {w}x{h}, "
-          f"{cfg.database.max_keypoints} keypoints: rendered in "
-          f"{render_s:.3f} s; {n_cand} candidate pairs, {n_verified} "
-          f"verified; {len(reg)}/{n_cams} registered in the largest of "
+          f"{cfg.database.max_keypoints} keypoints, {matching} candidates: "
+          f"rendered in {render_s:.3f} s; {n_cand} candidate pairs, {words}"
+          f"{n_verified} verified; {len(reg)}/{n_cams} registered in the "
+          f"largest of "
           f"{len(scenes)} models, {best.n_points()} points, ATE {ate:.5f}; "
           f"{dt:.3f} s = {n_cams / dt:.4f} images/s; peak "
           f"{peak / 2**20:.1f} MiB; launches {launches}; solver counts "
@@ -1592,9 +1720,12 @@ def aerial_phase(rows=10, cols=20, hierarchical=False):
         raise AssertionError("aerial: the PCG camera solve never ran")
     if hierarchical and sfm.stats["full_ba_hier"] < 1:
         raise AssertionError("aerial: no hierarchical submap BA ran")
+    if matching == "feature" and n_words < 1:
+        raise AssertionError("aerial: no vocabulary was trained")
     return launches, {"images_per_s": n_cams / dt, "seconds": dt,
                       "registered": len(reg), "n_images": n_cams,
                       "ate": ate, "candidate_pairs": n_cand,
+                      "pairs_after_word_gate": n_kept, "words": n_words,
                       "verified_pairs": n_verified, "peak_bytes": peak,
                       "render_seconds": render_s,
                       "solver_counts": dict(sfm.stats),
@@ -1612,7 +1743,7 @@ def profile_aerial():
 
     gt, cfg, _ = aerial_setup()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = aerial_run(gt, cfg)
+        _, _, _, wall, _ = aerial_run(gt, cfg)
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2235,6 +2366,9 @@ def main(argv=None):
     with phase("4b calibrated path: cli sfm on EXIF-tagged JPEGs"):
         exif_launches, exif_stats = exif_path_phase()
         check_launches(exif_launches, "the calibrated sfm path")
+    with phase("4c web path: default cli sfm on 24 views, BoW candidates"):
+        web_launches, web_stats = web_path_phase()
+        check_launches(web_launches, "the web sfm path")
     with phase("5 dense path: cli dense"):
         dense_launches, dense_stats = dense_phase()
         check_launches({k: n for k, n in dense_launches.items()
@@ -2253,15 +2387,18 @@ def main(argv=None):
         big_launches, big_stats = aerial_phase(rows=20, cols=25,
                                                hierarchical=True)
         check_launches(big_launches, "the 500-view aerial path")
+    with phase("9d aerial path: 200 views, vocabulary-tree candidates"):
+        bow_launches, bow_stats = aerial_phase(matching="feature")
+        check_launches(bow_launches, "the BoW aerial path")
     with phase("11a street path: cli slam, 1,000 keyframes, GPS BA by PCG"):
         street_stats = street_fixed_phase()
     with phase("11b street re-match path: 100 rendered keyframes, 2a"):
         street_launches, rematch_stats, ragged_err = street_rematch_phase()
         check_launches(street_launches, "the street re-match path")
     # a kernel's launches: the sum of its counts over the paths' timed runs
-    for path_launches in (exif_launches, dense_launches, volume_launches,
-                          tput_launches, aerial_launches, big_launches,
-                          street_launches):
+    for path_launches in (exif_launches, web_launches, dense_launches,
+                          volume_launches, tput_launches, aerial_launches,
+                          big_launches, bow_launches, street_launches):
         for k, n in path_launches.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
@@ -2280,6 +2417,8 @@ def main(argv=None):
             "e2e": {k: v for k, v in stats.items() if k != "stages"},
             "e2e_exif": {k: v for k, v in exif_stats.items()
                          if k != "stages"},
+            "e2e_web": {k: v for k, v in web_stats.items()
+                        if k != "stages"},
             "dense": {k: v for k, v in dense_stats.items() if k != "stages"},
             "dense_volume": volume_stats,
             "dense_elas": {k: v for k, v in elas_stats.items()
@@ -2288,6 +2427,8 @@ def main(argv=None):
             "aerial": {k: v for k, v in aerial_stats.items()
                        if k != "stages"},
             "aerial_500": {k: v for k, v in big_stats.items()
+                           if k != "stages"},
+            "aerial_bow": {k: v for k, v in bow_stats.items()
                            if k != "stages"},
             "street": {k: v for k, v in street_stats.items()
                        if k != "stages"},

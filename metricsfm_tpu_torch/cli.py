@@ -1,27 +1,31 @@
 """Command-line entry point of the PyTorch port.
 
   python -m metricsfm_tpu_torch.cli sfm <image_fold> [--mode web|uav]
-      [--out DIR] [--max-kp N] [--no-resize] [--matching all]
-      [--device cuda|cpu]
+      [--out DIR] [--max-kp N] [--no-resize]
+      [--matching all|priori|feature] [--debug-matches] [--device cuda|cpu]
   python -m metricsfm_tpu_torch.cli slam <fold> [--device cuda|cpu]
       (KeyFramePts.txt / pos.txt / rgb.txt, optional image/ keyframes)
   python -m metricsfm_tpu_torch.cli dense <fold> [--pose-file F]
       [--disp 128] [--method sgm|elas] [--device cuda|cpu]
+  python -m metricsfm_tpu_torch.cli calib <video> <out_fold> [--frame-step N]
+      [--device cuda|cpu]
 
 Counterparts of `metricsfm_tpu.cli sfm` (the reference's test_sfm.cc
 program), `metricsfm_tpu.cli slam` (GPS-aided SLAM refinement of a street
 sequence, the reference's test_slam program; writes <fold>/mtpu_out and
 <fold>/accuracy.txt) and `metricsfm_tpu.cli dense` (pairwise stereo over
 the consecutive views of a SURE pose file, e.g. the `sfm_sure.txt` that
-`sfm` writes).  `--method sgm` runs on a card through the CUDA kernels of
-ops/sgm_kernel, with --device cpu through their plain versions; `--method
-elas` is plain torch on either device (the reference has no kernel for
-it).  The calib command is not ported yet.
+`sfm` writes) and `metricsfm_tpu.cli calib` (video frames decoded with
+cv2, then `sfm` in web mode on them, the reference's test_calib program).
+`--method sgm` runs on a card through the CUDA kernels of ops/sgm_kernel,
+with --device cpu through their plain versions; `--method elas` is plain
+torch on either device (the reference has no kernel for it).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def _device(name: str):
@@ -43,14 +47,15 @@ def cmd_sfm(args):
 
     device = _device(args.device)
     cfg = PRESETS[args.mode]()
-    # optional overrides (small test scenes / CPU runs)
-    if args.max_kp:
+    # optional overrides (small test scenes / CPU runs); `calib` passes
+    # none of them
+    if getattr(args, "max_kp", 0):
         cfg = dataclasses.replace(cfg, database=dataclasses.replace(
             cfg.database, max_keypoints=args.max_kp))
-    if args.no_resize:
+    if getattr(args, "no_resize", False):
         cfg = dataclasses.replace(cfg, database=dataclasses.replace(
             cfg.database, resize=False))
-    if args.matching:
+    if getattr(args, "matching", None):
         cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
             cfg.graph, matching_type=args.matching))
     db = Database(args.fold, cfg.database, output_fold=args.out,
@@ -59,7 +64,11 @@ def cmd_sfm(args):
     with span("sfm/feature_extraction", sync=True):
         db.feature_extraction(verbose=True)
     with span("sfm/match_graph", sync=True):
-        matches = build_match_graph(db, cfg, verbose=True)
+        matches = build_match_graph(
+            db, cfg, verbose=True,
+            debug_render_dir=(os.path.join(db.out, "match_renders")
+                              if getattr(args, "debug_matches", False)
+                              else None))
     feats = {i: db.features(i) for i in range(db.n_images)}
     with span("sfm/reconstruct", sync=True):
         sfm = IncrementalSfM(feats, matches, cfg, device=device)
@@ -128,6 +137,34 @@ def cmd_dense(args):
     return clouds
 
 
+def cmd_calib(args):
+    """Video -> frames + self-calibrating SfM run (ref test_calib.cc:31-140):
+    every `frame_step`-th frame is written as <out>/NNNNNN.jpg, then `sfm`
+    runs in web mode on that folder.  Returns the scenes."""
+    _device(args.device)        # refuse a missing card before decoding
+    os.makedirs(args.out, exist_ok=True)
+    try:
+        import cv2
+    except ImportError:
+        sys.exit("calib requires cv2 for video decoding")
+    cap = cv2.VideoCapture(args.video)
+    i = saved = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if i % args.frame_step == 0:
+            cv2.imwrite(os.path.join(args.out, f"{saved:06d}.jpg"), frame)
+            saved += 1
+        i += 1
+    cap.release()
+    print(f"extracted {saved} frames")
+    args.fold = args.out
+    args.mode = "web"
+    args.out = None
+    return cmd_sfm(args)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="metricsfm_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -142,6 +179,10 @@ def main(argv=None):
                     help="skip resize to the working resolution")
     ps.add_argument("--matching", choices=["all", "priori", "feature"],
                     default=None, help="override candidate strategy")
+    ps.add_argument("--debug-matches", action="store_true",
+                    help="write per-pair match renders to <out>/"
+                    "match_renders (ref fine_matching_graph.cc:156-180 "
+                    "debug blocks)")
     ps.add_argument("--device", default="cuda",
                     help="torch device: cuda (default; raises without a "
                     "card) or cpu")
@@ -165,6 +206,15 @@ def main(argv=None):
                     help="torch device: cuda (default; raises without a "
                     "card) or cpu")
     pd.set_defaults(fn=cmd_dense)
+
+    pc = sub.add_parser("calib", help="video -> frames -> self-calibrating SfM")
+    pc.add_argument("video")
+    pc.add_argument("out")
+    pc.add_argument("--frame-step", type=int, default=10)
+    pc.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default; raises without a "
+                    "card) or cpu")
+    pc.set_defaults(fn=cmd_calib)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,5 +1,5 @@
 """Interop export writers: Bundler/CMVS, OpenMVS, SURE, MSP .qin, clouds,
-undistorted images.
+undistorted images, match renders.
 
 Counterpart of metricsfm_tpu/io/exports.py; the writers are host numpy and
 produce the same files, except the undistortion warp, which runs on the
@@ -309,3 +309,65 @@ def write_track_overlay_image(path: str, centers_est: np.ndarray,
                 d.line([prev, (x, y)], fill=color, width=1)
             prev = (x, y)
     im.save(path)
+
+
+def write_match_visualization(path: str, img_i: np.ndarray,
+                              img_j: np.ndarray, xy_i: np.ndarray,
+                              xy_j: np.ndarray, kp_i: np.ndarray,
+                              kp_j: np.ndarray,
+                              good: Optional[np.ndarray] = None,
+                              max_lines: int = 200):
+    """Side-by-side render of one image pair with match lines.
+
+    The reference keeps (commented-out) cv::line match-visualization
+    blocks as its pair-debugging affordance
+    (graph/fine_matching_graph.cc:156-180); this is the shipped
+    equivalent: image i left, image j right, one line per match (green =
+    `good` subset used for F estimation, orange = the rest), subsampled
+    to `max_lines` evenly.
+
+    Args:
+      img_i, img_j: (H, W) grayscale in [0, 1] or (H, W, 3) uint8/float.
+      xy_i, xy_j: (K, 2) CENTERED keypoint coords of each image, at the
+        images' own resolution (database.cc:522-527 semantics).
+      kp_i, kp_j: (N,) matched keypoint index pairs.
+      good: optional (N,) bool — the ratio-test "good" subset.
+    """
+    from PIL import Image, ImageDraw
+
+    def to_rgb8(im):
+        a = np.asarray(im)
+        if a.dtype != np.uint8:
+            a = np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        if a.ndim == 2:
+            a = np.stack([a] * 3, axis=-1)
+        return a
+
+    a, b = to_rgb8(img_i), to_rgb8(img_j)
+    H = max(a.shape[0], b.shape[0])
+    canvas = np.zeros((H, a.shape[1] + b.shape[1], 3), np.uint8)
+    canvas[:a.shape[0], :a.shape[1]] = a
+    canvas[:b.shape[0], a.shape[1]:] = b
+    im = Image.fromarray(canvas)
+    d = ImageDraw.Draw(im)
+
+    # centered coords -> pixel coords of each half
+    ci = np.asarray([a.shape[1] / 2.0, a.shape[0] / 2.0])
+    cj = np.asarray([b.shape[1] / 2.0 + a.shape[1], b.shape[0] / 2.0])
+    kp_i = np.asarray(kp_i, np.int64)
+    kp_j = np.asarray(kp_j, np.int64)
+    n = len(kp_i)
+    sel = (np.linspace(0, n - 1, min(n, max_lines)).astype(np.int64)
+           if n else np.zeros(0, np.int64))
+    g = (np.asarray(good, bool) if good is not None
+         else np.ones(n, bool))
+    for s in sel:
+        p = np.asarray(xy_i[kp_i[s]], float) + ci
+        q = np.asarray(xy_j[kp_j[s]], float) + cj
+        color = (0, 200, 0) if g[s] else (230, 140, 0)
+        d.line([(p[0], p[1]), (q[0], q[1])], fill=color, width=1)
+        for pt in (p, q):
+            d.ellipse([pt[0] - 2, pt[1] - 2, pt[0] + 2, pt[1] + 2],
+                      outline=color)
+    im.save(path)
+    return path

@@ -25,6 +25,10 @@ def _npath(out: str, i: int) -> str:
     return os.path.join(out, f"{i}_feature.msf")
 
 
+def _wpath(out: str, i: int) -> str:
+    return os.path.join(out, f"{i}_words.npz")
+
+
 def has_features(out: str, i: int) -> bool:
     return os.path.exists(_fpath(out, i)) or os.path.exists(_npath(out, i))
 
@@ -81,6 +85,18 @@ def read_features(out: str, i: int) -> Optional[dict]:
                 "meta": json.loads(str(z["meta"]))}
 
 
+def write_words(out: str, i: int, words, counts):
+    np.savez_compressed(_wpath(out, i), words=words, counts=counts)
+
+
+def read_words(out: str, i: int) -> Optional[dict]:
+    p = _wpath(out, i)
+    if not os.path.exists(p):
+        return None
+    with np.load(p) as z:
+        return {"words": z["words"], "counts": z["counts"]}
+
+
 def _impath(out: str, i: int) -> str:
     return os.path.join(out, f"{i}_match.npz")
 
@@ -117,6 +133,24 @@ def read_image_matches(out: str, i: int) -> Optional[dict]:
             if f"a{j}" in z:
                 pairs[j] = (z[f"a{j}"], z[f"b{j}"])
     return {"processed": js, "pairs": pairs}
+
+
+# -- vocabulary ------------------------------------------------------------
+
+def write_vocabulary(out: str, voc):
+    np.savez_compressed(os.path.join(out, "voctree.npz"),
+                        coarse=voc.coarse.cpu().numpy(),
+                        fine=voc.fine.cpu().numpy())
+
+
+def read_vocabulary(out: str, device):
+    """The stored vocabulary on `device`, or None."""
+    p = os.path.join(out, "voctree.npz")
+    if not os.path.exists(p):
+        return None
+    from ..ops.kmeans import Vocabulary
+    with np.load(p) as z:
+        return Vocabulary.from_numpy(z["coarse"], z["fine"], device)
 
 
 # -- match graph -----------------------------------------------------------

@@ -8,10 +8,11 @@ Database (SfM/src/database.{h,cc}):
   * SIFT feature extraction (ops/sift.py) on a torch device with per-image
     persistence and resume: only missing entries recomputed (feature_index
     semantics, database.cc:62-100,209-247)
+  * vocabulary training + per-image word bags (database.cc:655-867), on
+    the same device (ops/kmeans.py)
 
 Storage is the JAX package's per-image store (io/store.py), so either
-package resumes from the other's features.  Vocabulary training and word
-bags (BoW candidates) are not ported yet.
+package resumes from the other's features, vocabulary and words.
 """
 from __future__ import annotations
 
@@ -205,3 +206,81 @@ class Database:
 
     def release(self, i: int):
         self._features.pop(i, None)
+
+    # -- word stage --------------------------------------------------------
+    def build_words(self, generator: Optional[torch.Generator] = None,
+                    verbose: bool = False):
+        """Vocabulary + per-image word bags with resume
+        (ref BuildWords/BuildVocabularyTree, database.cc:655-867).
+
+        Returns (vocabulary, counts (n_images, n_words) np.float32), counts
+        None when n_images * n_words exceeds 50 M (candidate selection then
+        goes through word_lists() + ops.kmeans.similarity_chunked).
+        generator: the k-means++ draws' stream (default: seeded 0).
+        """
+        from ..ops import kmeans as km
+
+        voc = fstore.read_vocabulary(self.out, self.device)
+        if voc is None:
+            # sample training descriptors from <= num_image_voc images
+            idxs = np.linspace(0, self.n_images - 1,
+                               min(self.n_images, self.opts.num_image_voc)
+                               ).astype(int)
+            descs = []
+            for i in idxs:
+                f = self.features(i)
+                descs.append(f.desc[f.mask])
+                self.release(i)
+            train = np.concatenate(descs)[:200000]
+            # Honor voc_branch/voc_level (ref fbow k=10, L=6) as a target
+            # word count for a two-level tree, capped by what the sample
+            # can support (>= 8 training descriptors per word).
+            target_words = min(self.opts.voc_branch ** self.opts.voc_level,
+                               max(256, min(65536, len(train) // 8)))
+            b1 = max(2, int(np.ceil(np.sqrt(target_words))))
+            voc = km.train_vocabulary(
+                torch.from_numpy(np.ascontiguousarray(train, np.float32)
+                                 ).to(self.device),
+                generator, branch1=b1, branch2=b1)
+            fstore.write_vocabulary(self.out, voc)
+            if verbose:
+                print(f"vocabulary: {voc.n_words} words")
+        n_words = int(voc.n_words)
+        dense = self.n_images * n_words <= 50_000_000
+        counts = np.zeros((self.n_images, n_words), np.float32) if dense \
+            else None
+        for i in range(self.n_images):
+            cached = fstore.read_words(self.out, i)
+            if cached is not None:
+                if dense:
+                    counts[i] = cached["counts"]
+                continue
+            f = self.features(i)
+            if int(f.mask.sum()) < self.opts.min_keypoints_for_words:
+                fstore.write_words(self.out, i,
+                                   words=np.full(len(f.xy), -1, np.int32),
+                                   counts=np.zeros(n_words, np.float32))
+                self.release(i)
+                continue
+            words, cts = km.transform(
+                voc, torch.from_numpy(np.asarray(f.desc, np.float32)
+                                      ).to(self.device),
+                torch.from_numpy(np.asarray(f.mask, bool)).to(self.device))
+            cts = cts.cpu().numpy()
+            fstore.write_words(self.out, i, words=words.cpu().numpy(),
+                               counts=cts)
+            if dense:
+                counts[i] = cts
+            self.release(i)
+        return voc, counts
+
+    def word_lists(self):
+        """Per-image keypoint word-id arrays (build_words must have run).
+        The sparse counterpart of the dense counts matrix — O(total
+        keypoints) memory regardless of vocabulary size."""
+        out = []
+        for i in range(self.n_images):
+            cached = fstore.read_words(self.out, i)
+            out.append(cached["words"] if cached is not None
+                       else np.empty(0, np.int32))
+        return out

@@ -4,10 +4,10 @@ Counterpart of metricsfm_tpu/models/match_graph.py (the reference graph
 layer, SfM/src/graph.{h,cc}, graph/initial_matching_graph.cc,
 graph/fine_matching_graph.cc):
 
-* Candidate pairs: "all" (exhaustive, initial_matching_graph.cc:57-64) or
-  "priori" (GPS mutual k-NN in the UTM plane, :83-162).  The "feature"
-  (BoW) strategy is not ported yet and raises; like the JAX package, 12
-  images or fewer always match all pairs.
+* Candidate pairs: "all" (exhaustive, initial_matching_graph.cc:57-64),
+  "priori" (GPS mutual k-NN in the UTM plane, :83-162) or "feature" (BoW
+  top-k by vocabulary similarity, then the word-seed gate, :164-294); like
+  the JAX package, 12 images or fewer always match all pairs.
 * Fine matching: exact 2-NN with dual ratio tests (fine_matching_graph.cc:
   42-43); "good" matches (ratio < 0.6) estimate F via batched RANSAC, then
   "all" matches (ratio < 0.85) are re-filtered by epipolar distance < 3 px
@@ -22,6 +22,8 @@ graph/fine_matching_graph.cc):
 from __future__ import annotations
 
 import itertools
+import operator
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -56,6 +58,67 @@ def candidates_gps(gps_utm: np.ndarray, knn: int) -> List[Tuple[int, int]]:
             if i in nbrs[j]:
                 pairs.add((min(i, int(j)), max(i, int(j))))
     return sorted(pairs)
+
+
+def candidates_bow(sim: np.ndarray, min_c: int = 200, max_c: int = 500
+                   ) -> List[Tuple[int, int]]:
+    """BoW similarity: per-image top min(max(min_c, n/10), max_c) candidates
+    (ref :164-294, count rule :168-169)."""
+    n = sim.shape[0]
+    k = min(max(min_c, n // 10), max_c, n - 1)
+    pairs = set()
+    order = np.argsort(-sim, axis=1)
+    for i in range(n):
+        for j in order[i, :k]:
+            if sim[i, j] > 0:
+                pairs.add((min(i, int(j)), max(i, int(j))))
+    return sorted(pairs)
+
+
+def candidates_feature(database, opts: GraphOptions, device,
+                       verbose: bool = False):
+    """The "feature" strategy: the database's vocabulary and word bags
+    (built, or resumed from its stores), BoW similarity on `device`, the
+    per-image top-k (`candidates_bow`), then the word-intersection seed
+    gate: pairs sharing fewer than `word_seed_min_matches` distinct words
+    cannot yield that many seed matches and are dropped before fine
+    matching (ref initial_matching_graph.cc:210-289).
+
+    Returns (candidates before the gate, pairs after it).
+    """
+    from ..ops import kmeans as km
+
+    voc, counts = database.build_words(verbose=verbose)
+    if counts is not None:
+        c = torch.from_numpy(counts).to(device)
+        sim = km.similarity_matrix(c, opts.stop_word_frac).cpu().numpy()
+        inter = km.word_intersection_counts(c).cpu().numpy()
+    else:
+        # large image sets: streamed word-block accumulation, no
+        # (n_images, n_words) matrix (ref inverted file,
+        # similarity_graph.cc:47-117)
+        sim, inter = km.similarity_chunked(
+            database.word_lists(), int(voc.n_words),
+            stop_word_frac=opts.stop_word_frac, device=device)
+    cands = candidates_bow(sim, opts.min_candidates, opts.max_candidates)
+    pairs = cands
+    if opts.word_seed_min_matches > 0:
+        pairs = [(i, j) for (i, j) in cands
+                 if inter[i, j] >= opts.word_seed_min_matches]
+        if verbose and len(pairs) < len(cands):
+            print(f"word-seed gate: {len(cands)} -> {len(pairs)} pairs")
+    return cands, pairs
+
+
+def check_pairs(pairs, n: int):
+    """Every pair is two integers 0 <= i < j < n; raises IndexError (or
+    TypeError for a non-integer) on the host, before any index reaches a
+    device kernel."""
+    for p in pairs:
+        i, j = (operator.index(v) for v in p)
+        if not 0 <= i < j < n:
+            raise IndexError(f"candidate pair {tuple(p)} is not "
+                             f"0 <= i < j < {n}")
 
 
 def verify_pairs(opts: GraphOptions, desc, xy, mask, ii, jj, generator):
@@ -121,6 +184,40 @@ class MatchGraphBuilder:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 
+    def match_one_pair(self, feat_i, feat_j) -> Optional[PairMatches]:
+        """Fine matching for one pair (ref fine_matching_graph.cc:104-147):
+        2-NN with the dual ratio tests, F by RANSAC on the "good" matches,
+        then the "all" matches re-filtered by epipolar distance."""
+        def put(a, dtype=None):
+            return torch.as_tensor(np.asarray(a, dtype)).to(self.device)
+
+        res = matching.match_pair(
+            put(feat_i.desc, np.float32), put(feat_j.desc, np.float32),
+            put(feat_i.mask, bool), put(feat_j.mask, bool),
+            ratio_good=self.opts.ratio_good, ratio_all=self.opts.ratio_all)
+        good = res["good"].cpu().numpy()
+        allm = res["all"].cpu().numpy()
+        idx2 = res["idx2"].cpu().numpy().astype(np.int64)
+        if good.sum() < 8:
+            return None
+        # F from "good" matches via batched RANSAC
+        p1 = put(feat_i.xy, np.float32)
+        p2 = put(feat_j.xy[idx2], np.float32)
+        fr = ransac.fundamental_ransac(
+            p1, p2, self.gen, mask=put(good),
+            th_px=self.opts.epipolar_px,
+            min_inliers=self.opts.geoverify_min_inliers)
+        if not bool(fr["ok"]):
+            return None
+        # re-filter "all" matches by epipolar distance under the fixed F
+        d = epipolar.epipolar_distance(fr["F"], p1, p2).cpu().numpy()
+        keep = allm & (d < self.opts.epipolar_px)
+        if keep.sum() < self.opts.geoverify_min_inliers:
+            return None
+        kp_i = np.where(keep)[0]
+        return PairMatches(kp_i=kp_i.astype(np.int64),
+                           kp_j=idx2[kp_i].astype(np.int64))
+
     def build(self, features, pairs: List[Tuple[int, int]],
               verbose: bool = False, owner=None
               ) -> Dict[Tuple[int, int], PairMatches]:
@@ -134,6 +231,9 @@ class MatchGraphBuilder:
         owner=(process_id, process_count): this process matches only the
         pairs whose FIRST image falls in its contiguous image shard.
         """
+        # pair indices are checked here, on the host: a stray index would
+        # trap the 2-NN kernel and lose the process's CUDA context
+        check_pairs(pairs, len(features))
         if owner is not None:
             from ..parallel.mesh import owned_range
             n_imgs = 1 + max((max(i, j) for i, j in pairs), default=0)
@@ -222,8 +322,55 @@ class MatchGraphBuilder:
         return out
 
 
+def _native_xy(feat, shape):
+    """Centered keypoint coordinates of the working resolution (the feature
+    meta's width x height) scaled to an image of `shape` (H, W)."""
+    scale = np.array([shape[1] / feat.width, shape[0] / feat.height])
+    return np.asarray(feat.xy, np.float64) * scale
+
+
+def render_pair_matches(database, matches, render_dir: str,
+                        features=None, max_pairs: int = 50,
+                        max_lines: int = 200) -> List[str]:
+    """Write side-by-side match renders for verified pairs (the
+    reference's commented-out cv::line debug blocks,
+    fine_matching_graph.cc:156-180, as a shipped affordance).
+
+    Renders up to `max_pairs` pairs (evenly subsampled) as
+    match_{i}_{j}.png in render_dir, on the images at their native
+    resolution: keypoints found at a resized working resolution are scaled
+    to it (the JAX package draws them unscaled).  Returns written paths.
+    """
+    from PIL import Image
+
+    from ..io.exports import write_match_visualization
+
+    os.makedirs(render_dir, exist_ok=True)
+    feats = features or {i: database.features(i)
+                         for i in range(database.n_images)}
+    keys = sorted(matches.keys())
+    sel = (np.linspace(0, len(keys) - 1,
+                       min(len(keys), max_pairs)).astype(int)
+           if keys else np.zeros(0, int))
+    written = []
+    for s in np.unique(sel):
+        i, j = keys[s]
+        m = matches[(i, j)]
+        with Image.open(database.image_paths[i]) as a:
+            img_i = np.asarray(a.convert("L"), np.float32) / 255.0
+        with Image.open(database.image_paths[j]) as b:
+            img_j = np.asarray(b.convert("L"), np.float32) / 255.0
+        p = os.path.join(render_dir, f"match_{i:04d}_{j:04d}.png")
+        write_match_visualization(p, img_i, img_j,
+                                  _native_xy(feats[i], img_i.shape),
+                                  _native_xy(feats[j], img_j.shape),
+                                  m.kp_i, m.kp_j, max_lines=max_lines)
+        written.append(p)
+    return written
+
+
 def build_match_graph(database, config, verbose: bool = False, device=None,
-                      priori_utm=None):
+                      priori_utm=None, debug_render_dir=None):
     """End-to-end graph build (ref Graph::BuildGraph, graph.cc:52-70):
     candidate pairs, then batched fine matching on `device` (default: the
     database's).  Returns {(i, j): PairMatches}.
@@ -231,9 +378,13 @@ def build_match_graph(database, config, verbose: bool = False, device=None,
     priori_utm: optional (n, 2) easting/northing for 'priori' candidate
     selection when positions come from a pose-prior file rather than image
     EXIF (the reference accepts both, initial_matching_graph.cc:83-162).
+
+    debug_render_dir: when set, per-pair match visualizations are written
+    there (render_pair_matches).
     """
     opts = config.graph
     n = database.n_images
+    device = device or database.device
     if opts.matching_type == "all" or n <= 12:
         pairs = candidates_all(n)
     elif opts.matching_type == "priori":
@@ -248,12 +399,12 @@ def build_match_graph(database, config, verbose: bool = False, device=None,
             coords = np.array(coords)
         pairs = candidates_gps(coords, opts.knn)
     else:
-        raise NotImplementedError(
-            f"matching_type {opts.matching_type!r} (BoW 'feature' "
-            "candidates) is not ported yet (ROADMAP queue 'BoW')")
+        _, pairs = candidates_feature(database, opts, device, verbose)
     if verbose:
         print(f"match graph: {len(pairs)} candidate pairs for {n} images")
-    builder = MatchGraphBuilder(opts, out_fold=database.out,
-                                device=device or database.device)
+    builder = MatchGraphBuilder(opts, out_fold=database.out, device=device)
     feats = {i: database.features(i) for i in range(n)}
-    return builder.build(feats, pairs, verbose=verbose)
+    out = builder.build(feats, pairs, verbose=verbose)
+    if debug_render_dir is not None:
+        render_pair_matches(database, out, debug_render_dir, features=feats)
+    return out

@@ -75,6 +75,13 @@ class _GpsOnlyDatabase:
     def features(self, i):
         return None
 
+    def build_words(self, verbose=False):
+        """Word bags in which only images 2k and 2k + 1 share a word."""
+        counts = np.zeros((self.n_images, 400), np.float32)
+        for i in range(self.n_images):
+            counts[i, i // 2] = 1.0
+        return None, counts
+
 
 @pytest.mark.parametrize("source", ["exif gps", "priori_utm"])
 def test_priori_branch_selects_gps_pairs(source, monkeypatch):
@@ -93,11 +100,11 @@ def test_priori_branch_selects_gps_pairs(source, monkeypatch):
     kw = {"priori_utm": coords} if source == "priori_utm" else {}
     tmg.build_match_graph(_GpsOnlyDatabase(latlon), cfg, device="cpu", **kw)
     assert seen["pairs"] == jmg.candidates_gps(coords, 6)
-    # BoW candidates are not ported: they still raise
+    # the "feature" branch selects by the database's word bags, not GPS
     bow = dataclasses.replace(cfg, graph=dataclasses.replace(
-        cfg.graph, matching_type="feature"))
-    with pytest.raises(NotImplementedError, match="BoW"):
-        tmg.build_match_graph(_GpsOnlyDatabase(latlon), bow, device="cpu")
+        cfg.graph, matching_type="feature", word_seed_min_matches=1))
+    tmg.build_match_graph(_GpsOnlyDatabase(latlon), bow, device="cpu", **kw)
+    assert seen["pairs"] == [(i, i + 1) for i in range(0, 40, 2)]
 
 
 def test_render_aerial_matches_jax():

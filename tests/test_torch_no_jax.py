@@ -33,6 +33,7 @@ MODULES = [
     "metricsfm_tpu_torch.utils.device",
     "metricsfm_tpu_torch.models.slam_gps",
     "metricsfm_tpu_torch.ops.homography",
+    "metricsfm_tpu_torch.ops.kmeans",
 ]
 
 
