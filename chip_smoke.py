@@ -102,6 +102,19 @@ and the script exits non-zero:
      m, >= 1,000 tracks of >= 3 views, 100 undistorted images, pose.qin of
      100 rows; then 2a against its plain version on 32 pairs of the run's
      own keyframe descriptors (ragged N);
+ 12. the auxiliary ops at full size (`aux_phase`): essential-guided
+     matching of two rendered 1024x768 views through 2a (count reset just
+     before, read just after; >= 100 inliers, >= 95 % under the rendered
+     E) and the four geo-verification modes on its matches; 8 segments
+     recovered within 5 px and local orientation at 4,096 points; GIST
+     against the CPU within 1e-4; 12 panorama zones of a 4096x2048 image;
+     p4pf (32 problems in f64, f within 1 % in >= 95 %), dlt_oriented (f
+     within 0.5 %) and epnp_robust (20 % gross outliers: below plain
+     EPnP; 10 %: < 0.5 deg) at N = 2,000;
+     exact undistortion of 4,096 points (1e-4); PSO on a 6-D quadratic;
+     the synthetic BA problem at 1,024 cameras x 131,072 points solved
+     with bench.py's production LMConfig (cost must drop; LM
+     iterations/s printed);
  10. print the paths' numbers, the kernel table (2a-2h, launches summed
      over the paths), the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
@@ -2308,6 +2321,340 @@ def ragged_knn2_check(feats, device, B=32):
                         f"B={m - 1} N={N} (ragged)")[0]
 
 
+# -- the auxiliary ops (phase 12) --------------------------------------------
+
+# 8 segments (x0, y0, x1, y1) of a 1024x768 test image: four horizontal in
+# the top band, four vertical below it, no segment's end or body within
+# reach of another one's infinite line (the support band of a Hough peak
+# runs across the whole image, and an aligned pixel anywhere on it widens
+# the segment)
+AUX_SEGMENTS = ((80, 60, 330, 60), (620, 120, 950, 120), (100, 180, 300, 180),
+                (640, 240, 900, 240), (400, 320, 400, 720),
+                (470, 340, 470, 600), (540, 300, 540, 700),
+                (610, 360, 610, 740))
+
+
+def segment_image(W=1024, H=768, segs=AUX_SEGMENTS):
+    """1-px segments of 0.9 drawn on a 0.2 background (host numpy)."""
+    import numpy as np
+
+    img = np.full((H, W), 0.2, np.float32)
+    for x0, y0, x1, y1 in segs:
+        s = np.linspace(0.0, 1.0, int(4 * np.hypot(x1 - x0, y1 - y0)) + 1)
+        img[np.rint(y0 + s * (y1 - y0)).astype(int),
+            np.rint(x0 + s * (x1 - x0)).astype(int)] = 0.9
+    return img
+
+
+def pnp_problems(n, n_pts, f, seed):
+    """n random poses (world->camera) with n_pts world points in front of
+    each and their exact centered projections at focal f."""
+    import numpy as np
+    from metricsfm_tpu_torch.ops import np_geom
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        R = np_geom.angle_axis_to_matrix(rng.standard_normal(3) * 0.3)
+        t = np.array([0.3, -0.2, 0.5]) + rng.standard_normal(3) * 0.1
+        Xw = rng.standard_normal((n_pts, 3)) * 2
+        Xw[:, 2] += 8.0
+        Xc = Xw @ R.T + t
+        out.append((R, t, Xw, f * Xc[:, :2] / Xc[:, 2:]))
+    return out
+
+
+def rot_err_deg(Ra, Rb):
+    import numpy as np
+
+    c = (np.trace(np.asarray(Ra, np.float64) @ np.asarray(Rb).T) - 1) / 2
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+@contextlib.contextmanager
+def aux_part(label, stats, dev):
+    """Time one part of phase 12 (host clock around work that ends in a
+    synchronize of the card) into stats[label]."""
+    import torch
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    yield
+    sync()
+    stats[label] = {"seconds": time.perf_counter() - t0}
+
+
+def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
+    """12: the auxiliary ops at full size on the card, each part timed.
+
+    (a) essential-guided matching of views 0 and 1 of render_scene(seed=0,
+        n_cams=8) at 1024x768 (port SIFT, 4,096 keypoints, centered xy):
+        2a once, then two E-RANSAC re-filters, with the 2a count reset just
+        before and read just after; gates >= 100 inliers and >= 95 % of
+        them under Sampson 1e-3 against the rendered poses' E; then the
+        four geo-verification modes on those matches (mode 1 must pass);
+    (b) detect_segments on a 1024x768 image of 8 segments (n_rho 2048,
+        64 peaks): each segment recovered within 5 px by a peak with ok;
+        local_orientation at 4,096 points (finite, unit or zero rows);
+    (c) GIST of one rendered view, held to the same function on the CPU
+        within 1e-4;
+    (d) extract_panorama on a 4096x2048 equirectangular multiscale_texture
+        image, 12 zones: every zone has keypoints, descriptors finite;
+    (e) p4pf on 32 noise-free problems in f64 (f within 1 % in >= 95 %;
+        the f32 share is printed: f32 P3P roots carry ~1e-3 of noise),
+        dlt_oriented at N = 2,000 with unknown focal (f within 0.5 %),
+        epnp_robust at N = 2,000 with 20 % gross outliers (rotation error
+        below plain EPnP's: the method drops 10 % of the points, so 10 %
+        outliers stay in its refit) and with 10 % (< 0.5 deg);
+    (f) undistort_points_exact on 4,096 points (within 1e-4 of the truth);
+    (g) pso_minimize on a 6-D quadratic (value < 1e-2);
+    (h) synthetic_ba_problem at the BASELINE shape (1,024 cameras,
+        131,072 points, 6 views) built on the card and solved with
+        bench.py's production LMConfig (8 iterations, 50 CG, forcing):
+        the final cost below the initial; LM iterations/s and the cost
+        drop are printed beside the card.
+    `device="cpu"` with a small BA shape rehearses the phase on the CPU.
+    Returns (launches, stats)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ba.lm import LMConfig, solve_lm
+    from metricsfm_tpu_torch.ops import (epipolar, essential_matching, gist,
+                                         lie, lines, matching, panorama,
+                                         pnp, sift)
+    from metricsfm_tpu_torch.utils import (calibration, geo_verification,
+                                           pso, synth)
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    stats = {}
+
+    def part(label):
+        return aux_part(label, stats, dev)
+
+    # (a) essential-guided matching through 2a, then geo-verification
+    gt = synth.render_scene(seed=0, n_cams=8, width=1024, height=768,
+                            focal=1.1 * 1024)
+    f = gt["focal"]
+    with part("a_match_pair_essential"):
+        feats = sift.extract(torch.tensor(gt["images"][:2], device=dev),
+                             sift.SiftConfig(max_keypoints=4096))
+        gen.manual_seed(0)
+        matching.knn2_gather.launches = 0
+        res = essential_matching.match_pair_essential(
+            feats["desc"][0], feats["desc"][1], feats["xy"][0],
+            feats["xy"][1], f, f, gen, mask1=feats["mask"][0],
+            mask2=feats["mask"][1])
+        inl = res["inlier_mask"]
+        n_inl = int(inl.sum())
+        launches = {"knn2": matching.knn2_gather.launches}
+    Rs = [lie.angle_axis_to_matrix(torch.tensor(gt["poses"][i, :3]))
+          for i in (0, 1)]
+    ts = [torch.tensor(gt["poses"][i, 3:]) for i in (0, 1)]
+    R01 = Rs[1] @ Rs[0].T
+    tx = lie.hat(ts[1] - R01 @ ts[0])
+    E_gt = (tx @ R01).to(device=dev, dtype=torch.float32)
+    xy1 = feats["xy"][0][inl]
+    xy2 = feats["xy"][1][res["idx2"].long()][inl]
+    d_gt = epipolar.sampson_distance(E_gt, xy1 / f, xy2 / f)
+    share = float((d_gt < 1e-3).float().mean())
+    print(f"  12a match_pair_essential: {int(feats['mask'][0].sum())} / "
+          f"{int(feats['mask'][1].sum())} keypoints, {n_inl} inliers, "
+          f"{share:.4f} of them under Sampson 1e-3 against the rendered E "
+          f"(median {float(d_gt.median()) * f * f:.4f} px^2), launches "
+          f"{launches}, {stats['a_match_pair_essential']['seconds']:.3f} s",
+          flush=True)
+    if n_inl < 100 or share < 0.95:
+        raise AssertionError(f"essential matching: {n_inl} inliers, "
+                             f"{share:.4f} under the ground-truth E")
+    p1, p2 = xy1.cpu().numpy(), xy2.cpu().numpy()
+    with part("a_geo_verification"):
+        gen.manual_seed(1)
+        ok, m1, F = geo_verification.verify_fundamental(p1, p2, gen,
+                                                        device=dev)
+        m2 = geo_verification.refilter_with_fundamental(F, p1, p2,
+                                                        device=dev)
+        m3 = geo_verification.verify_local_flow(p1, p2)
+        m4 = geo_verification.verify_patch_fundamental(p1, p2, gen,
+                                                       device=dev)
+    kept = {"fundamental": int(m1.sum()), "refilter": int(m2.sum()),
+            "local_flow": int(m3.sum()), "patch_fundamental": int(m4.sum())}
+    print(f"  12a geo-verification of {len(p1)} matches: mode 1 ok {ok}, "
+          f"kept {kept}, {stats['a_geo_verification']['seconds']:.3f} s",
+          flush=True)
+    if not ok:
+        raise AssertionError("geo-verification mode 1 rejected the pair")
+    stats["a_match_pair_essential"].update(
+        inliers=n_inl, gt_share=share, launches=launches["knn2"])
+    stats["a_geo_verification"]["kept"] = kept
+
+    # (b) segments and local orientation
+    img = torch.tensor(segment_image(), device=dev)
+    with part("b_lines"):
+        seg = lines.detect_segments(img, max_segments=64, n_rho=2048)
+        pts = torch.rand((4096, 2), generator=gen.manual_seed(2),
+                         device=dev) * torch.tensor([1023.0, 767.0],
+                                                    device=dev)
+        ori = lines.local_orientation(img, pts)
+    p0, q0 = seg["p0"].cpu().numpy(), seg["p1"].cpu().numpy()
+    ok_seg = seg["ok"].cpu().numpy()
+    errs = []
+    for x0, y0, x1, y1 in AUX_SEGMENTS:
+        a, b = np.array([x0, y0], float), np.array([x1, y1], float)
+        e = np.minimum(
+            np.maximum(np.linalg.norm(p0 - a, axis=1),
+                       np.linalg.norm(q0 - b, axis=1)),
+            np.maximum(np.linalg.norm(p0 - b, axis=1),
+                       np.linalg.norm(q0 - a, axis=1)))
+        errs.append(float(np.where(ok_seg, e, np.inf).min()))
+    nrm = torch.linalg.norm(ori, dim=-1)
+    unit = bool(torch.all(torch.isfinite(ori))
+                and torch.all((torch.abs(nrm - 1) < 1e-4) | (nrm == 0)))
+    print(f"  12b detect_segments: {int(ok_seg.sum())} of 64 peaks ok, "
+          f"endpoint errors {[round(e, 3) for e in errs]} px; "
+          f"local_orientation at 4,096 points, unit or zero rows {unit}; "
+          f"{stats['b_lines']['seconds']:.3f} s", flush=True)
+    if max(errs) > 5.0 or not unit:
+        raise AssertionError(f"lines: endpoint errors {errs}, unit {unit}")
+    stats["b_lines"]["endpoint_err_px"] = errs
+
+    # (c) GIST on the card against the same function on the CPU
+    view = torch.tensor(gt["images"][0])
+    with part("c_gist"):
+        g = gist.gist_descriptor(view.to(dev))
+    g_err = float(torch.abs(g.cpu() - gist.gist_descriptor(view)).max())
+    print(f"  12c gist_descriptor 768x1024: {g.numel()} values, max |card -"
+          f" CPU| {g_err:.3e}, {stats['c_gist']['seconds']:.3f} s",
+          flush=True)
+    if not g_err <= 1e-4:
+        raise AssertionError(f"gist: card vs CPU {g_err}")
+    stats["c_gist"]["max_abs_err_vs_cpu"] = g_err
+
+    # (d) panorama: 12 zones of a 4096x2048 equirectangular image
+    rng = np.random.default_rng(3)
+    pano = np.concatenate([synth.multiscale_texture(rng, 2048)
+                           for _ in range(2)], axis=1)
+    pano_t = torch.tensor(pano, device=dev)
+    with part("d_panorama"):
+        zones = panorama.extract_panorama(pano_t)
+    n_kp = [int(z["mask"].sum()) for z in zones]
+    finite = all(bool(torch.isfinite(z["desc"]).all()) for z in zones)
+    print(f"  12d extract_panorama 4096x2048, {len(zones)} zones of "
+          f"{tuple(zones[0]['mask'].shape)} slots: keypoints {n_kp}, "
+          f"descriptors finite {finite}, "
+          f"{stats['d_panorama']['seconds']:.3f} s", flush=True)
+    if len(zones) != 12 or min(n_kp) < 1 or not finite:
+        raise AssertionError(f"panorama: keypoints {n_kp}, finite {finite}")
+    stats["d_panorama"]["keypoints"] = n_kp
+
+    # (e) the minimal and robust PnP solvers
+    def tens(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    probs = pnp_problems(32, 4, 1200.0, seed=4)
+    X4 = np.stack([p[2] for p in probs])
+    u4 = np.stack([p[3] for p in probs])
+    f_rel = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        with part(f"e_p4pf_{name}"):       # the 32 problems in one batch
+            f_est = pnp.p4pf(tens(X4, dtype), tens(u4, dtype),
+                             1000.0)["f"].cpu().numpy()
+        f_rel[name] = np.abs(f_est - 1200.0) / 1200.0
+    hit = {k: float((v < 0.01).mean()) for k, v in f_rel.items()}
+    (R, t, X, u), = pnp_problems(1, 2000, 1400.0, seed=5)
+    with part("e_dlt_oriented"):
+        f_dlt = float(pnp.dlt_oriented(tens(R), tens(X), tens(u))["f"])
+    rob_err, plain_err = {}, {}
+    for frac in (0.2, 0.1):
+        (R, t, X, u), = pnp_problems(1, 2000, 1000.0, seed=6)
+        bad = np.random.default_rng(7).uniform(size=2000) < frac
+        u = u.copy()
+        u[bad] += np.random.default_rng(8).uniform(100, 400, (bad.sum(), 2)) \
+            * np.sign(np.random.default_rng(9).standard_normal((bad.sum(), 2)))
+        with part(f"e_epnp_robust_{frac}"):
+            rob = pnp.epnp_robust(tens(X), tens(u), 1000.0,
+                                  generator=gen.manual_seed(5))
+            rob_err[frac] = rot_err_deg(rob["R"].cpu().numpy(), R)
+        R0, _ = pnp.epnp(tens(X), tens(u / 1000.0))
+        plain_err[frac] = rot_err_deg(R0.cpu().numpy(), R)
+    print(f"  12e p4pf on 32 problems: f within 1 % in {hit['f64']:.4f} (f64;"
+          f" max {float(f_rel['f64'].max()):.5f}, "
+          f"{stats['e_p4pf_f64']['seconds']:.3f} s), in {hit['f32']:.4f} "
+          f"(f32; max {float(f_rel['f32'].max()):.5f}, "
+          f"{stats['e_p4pf_f32']['seconds']:.3f} s); dlt_oriented N = 2,000"
+          f" f {f_dlt:.3f} (true 1400), "
+          f"{stats['e_dlt_oriented']['seconds']:.3f} s; epnp_robust N = "
+          f"2,000: rotation error {rob_err[0.2]:.5f} deg at 20 % gross "
+          f"outliers (plain EPnP {plain_err[0.2]:.5f}), {rob_err[0.1]:.5f} "
+          f"at 10 % (plain {plain_err[0.1]:.5f}), "
+          f"{stats['e_epnp_robust_0.2']['seconds']:.3f} s", flush=True)
+    if (hit["f64"] < 0.95 or abs(f_dlt - 1400.0) > 0.005 * 1400.0
+            or not rob_err[0.2] < plain_err[0.2] or rob_err[0.1] >= 0.5):
+        raise AssertionError(f"pnp: p4pf {hit}, dlt f {f_dlt}, epnp_robust "
+                             f"{rob_err} deg (plain {plain_err})")
+    stats["e_p4pf_f64"]["f_within_1pct"] = hit["f64"]
+    stats["e_p4pf_f32"]["f_within_1pct"] = hit["f32"]
+    stats["e_dlt_oriented"]["f"] = f_dlt
+    for frac in (0.2, 0.1):
+        stats[f"e_epnp_robust_{frac}"].update(rot_err_deg=rob_err[frac],
+                                              plain_rot_err_deg=plain_err[frac])
+
+    # (f) exact undistortion
+    k1, k2 = -0.2, 0.05
+    xy_u = (torch.rand((4096, 2), generator=gen.manual_seed(6), device=dev)
+            - 0.5) * 1.4
+    r2 = torch.sum(xy_u * xy_u, dim=-1, keepdim=True)
+    xy_d = xy_u * (1 + k1 * r2 + k2 * r2 * r2)
+    with part("f_undistort"):
+        back = calibration.undistort_points_exact(xy_d, k1, k2)
+    u_err = float(torch.abs(back - xy_u).max())
+    print(f"  12f undistort_points_exact on 4,096 points: max error "
+          f"{u_err:.3e}, {stats['f_undistort']['seconds']:.3f} s",
+          flush=True)
+    if not u_err <= 1e-4:
+        raise AssertionError(f"undistort_points_exact: error {u_err}")
+    stats["f_undistort"]["max_abs_err"] = u_err
+
+    # (g) particle swarm on a 6-D quadratic
+    goal = torch.tensor([0.3, -1.0, 2.0, 0.0, 1.5, -0.7], device=dev)
+    with part("g_pso"):
+        _, val = pso.pso_minimize(
+            lambda x: torch.sum((x - goal) ** 2, dim=-1),
+            torch.full((6,), -4.0, device=dev),
+            torch.full((6,), 4.0, device=dev), gen.manual_seed(7))
+        val = float(val)
+    print(f"  12g pso_minimize 6-D: value {val:.3e}, "
+          f"{stats['g_pso']['seconds']:.3f} s", flush=True)
+    if not val < 1e-2:
+        raise AssertionError(f"pso: value {val}")
+    stats["g_pso"]["value"] = val
+
+    # (h) the synthetic BA problem at the BASELINE shape
+    with part("h_build"):
+        prob = synth.synthetic_ba_problem(n_cams=ba_cams, n_pts=ba_pts,
+                                            device=dev)
+    cfg = LMConfig(max_iterations=8, cg_iterations=50, cg_tol=1e-4,
+                   cg_forcing=True, rtol=0.0)
+    solve_lm(prob, cfg._replace(max_iterations=1))         # warm-up
+    with part("h_solve"):
+        _, info = solve_lm(prob, cfg)
+    dt = stats["h_solve"]["seconds"]
+    rate = info["iterations"] / dt
+    print(f"  12h synthetic_ba_problem {prob.n_cameras} cameras, "
+          f"{prob.n_points} points, {int(prob.n_observations())} "
+          f"observations, built in {stats['h_build']['seconds']:.3f} s; "
+          f"solve_lm {info['iterations']} iterations in {dt:.3f} s = "
+          f"{rate:.4f} LM iterations/s, cost {info['initial_cost']:.6e} -> "
+          f"{info['final_cost']:.6e} ({card})", flush=True)
+    if not info["final_cost"] < info["initial_cost"]:
+        raise AssertionError(f"BA: cost {info['initial_cost']} -> "
+                             f"{info['final_cost']}")
+    stats["h_solve"].update(
+        iterations=info["iterations"], lm_iterations_per_s=rate,
+        initial_cost=info["initial_cost"], final_cost=info["final_cost"])
+    return launches, stats
+
+
 def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2395,10 +2742,14 @@ def main(argv=None):
     with phase("11b street re-match path: 100 rendered keyframes, 2a"):
         street_launches, rematch_stats, ragged_err = street_rematch_phase()
         check_launches(street_launches, "the street re-match path")
+    with phase("12 auxiliary ops"):
+        aux_launches, aux_stats = aux_phase(card)
+        check_launches(aux_launches, "the auxiliary ops")
     # a kernel's launches: the sum of its counts over the paths' timed runs
     for path_launches in (exif_launches, web_launches, dense_launches,
                           volume_launches, tput_launches, aerial_launches,
-                          big_launches, bow_launches, street_launches):
+                          big_launches, bow_launches, street_launches,
+                          aux_launches):
         for k, n in path_launches.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
@@ -2433,7 +2784,8 @@ def main(argv=None):
             "street": {k: v for k, v in street_stats.items()
                        if k != "stages"},
             "street_rematch": {k: v for k, v in rematch_stats.items()
-                               if k != "stages"}}), flush=True)
+                               if k != "stages"},
+            "aux": aux_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -168,3 +168,49 @@ def read_match_graph(out: str) -> Optional[Dict]:
         return None
     with np.load(p) as z:
         return {(int(i), int(j)): int(n) for i, j, n in z["edges"]}
+
+
+# -- reconstruction checkpoints (ref WriteTempResultOut, sfm_incremental.cc:1465) --
+# JSON in the JAX package's layout: either package resumes the other's.
+
+def write_scene_checkpoint(out: str, scene, tag: str):
+    poses = {str(k): v.tolist() for k, v in scene.poses.items()}
+    models = [{"f": m.f, "k1": m.k1, "k2": m.k2, "f_hint": m.f_hint,
+               "calibrated": m.calibrated} for m in scene.models]
+    model_of_image = {str(k): v for k, v in scene.model_of_image.items()}
+    tracks = [{"xyz": t.xyz.tolist(),
+               "obs": {str(k): int(v) for k, v in t.obs.items()},
+               "bad": t.is_bad} for t in scene.tracks]
+    fails = {str(k): v for k, v in scene.localization_failures.items()}
+    blob = {"poses": poses, "models": models, "model_of_image": model_of_image,
+            "tracks": tracks, "failures": fails, "n_images": scene.n_images}
+    tmp = os.path.join(out, f"scene_{tag}.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(blob, f)
+    os.replace(tmp, os.path.join(out, f"scene_{tag}.json"))
+
+
+def read_scene_checkpoint(out: str, tag: str, kp_counts: Dict[int, int]):
+    """Rebuild a Scene (ref ReadTempResultIn, sfm_incremental.cc:1622-1749);
+    None when there is no checkpoint.  Bad tracks are dropped."""
+    p = os.path.join(out, f"scene_{tag}.json")
+    if not os.path.exists(p):
+        return None
+    from ..models.scene import CameraModel, Scene
+    with open(p) as f:
+        blob = json.load(f)
+    scene = Scene(blob["n_images"])
+    for m in blob["models"]:
+        scene.add_camera_model(CameraModel(**m))
+    for k, pose in blob["poses"].items():
+        img = int(k)
+        scene.register_image(img, np.array(pose),
+                             blob["model_of_image"][k], kp_counts[img])
+    for t in blob["tracks"]:
+        if t["bad"]:
+            continue
+        scene.add_track(np.array(t["xyz"]),
+                        {int(k): v for k, v in t["obs"].items()})
+    scene.localization_failures = {int(k): v
+                                   for k, v in blob["failures"].items()}
+    return scene

@@ -11,6 +11,8 @@ from typing import Dict
 
 import numpy as np
 
+from ..utils import device as device_util
+
 
 def assess(scene, kp_xy: Dict[int, np.ndarray], max_views: int = 16, *,
            device):
@@ -37,3 +39,17 @@ def assess(scene, kp_xy: Dict[int, np.ndarray], max_views: int = 16, *,
         "per_track_rmse": np.sqrt(per_track_mse),
         "track_rows": maps["tracks"],
     }
+
+
+def cull_outliers(scene, kp_xy: Dict[int, np.ndarray], th_rmse_px: float,
+                  max_views: int = 16, *, device="cuda") -> int:
+    """Mark tracks whose RMSE exceeds the threshold as bad; returns count.
+    The residuals run on `device`."""
+    stats = assess(scene, kp_xy, max_views,
+                   device=device_util.resolve(device))
+    removed = 0
+    for row in np.where(stats["per_track_rmse"] > th_rmse_px)[0]:
+        if row < len(stats["track_rows"]):
+            scene.mark_bad(stats["track_rows"][row])
+            removed += 1
+    return removed

@@ -12,8 +12,9 @@ absolute_pose_via_epnpf, absolute_pose_estimation):
   (absolute_pose_via_epnpf.cc:35-64).
 
 Conventions: world->camera pose (R, t); observations are centered pixels;
-"normalized" observations are centered pixels divided by focal.  Not
-ported yet: p4pf, p3pf, dlt_oriented, epnp_robust (off the sfm path).
+"normalized" observations are centered pixels divided by focal.  Off the
+sfm path: the subset-consensus `epnp_robust`, the focal-sweep minimal
+solvers `p3pf` / `p4pf` and the known-rotation `dlt_oriented`.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Optional
 import torch
 
 from . import polynomial, umeyama
+from .lines import _linspace
 from .ransac import _gather_rows, _sample_indices
 
 _EPS = 1e-12
@@ -302,3 +304,187 @@ def pnp_ransac_unknown_focal(Xw, obs_px, f_hyp,
     avg = torch.sum(torch.where(fin_inl, e_fin, 0.0)) / torch.clamp(n, min=1)
     return {"R": R_fin, "t": t_fin, "f": f_best, "inlier_mask": fin_inl,
             "n_inliers": n, "avg_err": avg}
+
+
+def epnp_robust(Xw, obs_px, f, generator: Optional[torch.Generator] = None,
+                mask=None, iters: int = 10, subset_frac: float = 0.9,
+                subset_u=None):
+    """Subset-consensus EPnP (ref EPNPRobust, absolute_pose_via_epnp.cc:45-99).
+
+    EPnP is fit on `iters` random subsets (Bernoulli(subset_frac) weight
+    masks), each point's reprojection error is accumulated across the fits,
+    then one refit runs on the points whose accumulated error is at most
+    the floor(subset_frac * n_valid)-th smallest (clipped to [4, N]).
+    subset_u: optional injected (iters, N) uniforms in place of the draws
+    from `generator`.
+    Returns dict: R, t, inlier_mask, avg_err (mean kept-point error px).
+    """
+    N = Xw.shape[0]
+    dt, dev = Xw.dtype, Xw.device
+    m = torch.ones((N,), dtype=torch.bool, device=dev) if mask is None \
+        else mask.bool()
+    norm_obs = obs_px / f
+    u = subset_u.to(device=dev, dtype=dt) if subset_u is not None else \
+        torch.rand((iters, N), generator=generator, device=dev, dtype=dt)
+
+    acc = torch.zeros((N,), dtype=dt, device=dev)
+    for k in range(u.shape[0]):
+        keep = (u[k] < subset_frac) & m
+        R, t = epnp(Xw, norm_obs, weights=keep.to(dt))
+        err = reproj_errors_px(R, t, f, Xw, obs_px)
+        acc = acc + torch.where(torch.isfinite(err), err, 1e6)
+    acc = torch.where(m, acc, torch.inf)
+    n_valid = torch.sum(m)
+    k_keep = torch.clamp((subset_frac * n_valid).to(torch.int64), 4, N)
+    thresh = torch.sort(acc).values.gather(0, (k_keep - 1).reshape(1))
+    inl = m & (acc <= thresh)
+    w = inl.to(dt)
+    R, t = epnp(Xw, norm_obs, weights=w)
+    err = reproj_errors_px(R, t, f, Xw, obs_px)
+    err = torch.where(torch.isfinite(err), err, 1e6)
+    avg = torch.sum(err * w) / torch.clamp(torch.sum(w), min=1.0)
+    return {"R": R, "t": t, "inlier_mask": inl, "avg_err": avg}
+
+
+def _focal_sweep(f_hyp, num, f_lo, f_hi, dtype, device):
+    """f_hyp * exp(linspace(log f_lo, log f_hi, num)), the grid as
+    jnp.linspace evaluates it."""
+    lo = torch.log(torch.tensor(f_lo, dtype=dtype, device=device))
+    hi = torch.log(torch.tensor(f_hi, dtype=dtype, device=device))
+    grid = _linspace(lo, hi, num, True, lo)
+    return f_hyp * torch.exp(grid)
+
+
+def p3pf(Xw, obs_px, f_hyp, num_focal_samples: int = 128,
+         f_lo: float = 0.3, f_hi: float = 5.0):
+    """Pose + focal candidates from 3 points (ref absolute_pose_via_p3pf).
+
+    3 points underdetermine (pose, focal): like the reference, returns the
+    candidate set over a log-spaced focal sweep, every focal solved by P3P
+    in one batch; callers disambiguate with extra correspondences.
+    Xw (..., 3, 3), obs_px (..., 3, 2): leading axes are problems.
+    Returns dict R (..., S, 4, 3, 3), t (..., S, 4, 3), f (S,),
+    valid (..., S, 4).
+    """
+    fs = _focal_sweep(f_hyp, num_focal_samples, f_lo, f_hi, Xw.dtype,
+                      Xw.device)
+    S = fs.shape[0]
+    R, t, valid = p3p_grunert(
+        Xw[..., None, :, :].expand(*Xw.shape[:-2], S, 3, 3),
+        _bearings(obs_px[..., None, :, :], fs))
+    return {"R": R, "t": t, "f": fs, "valid": valid}
+
+
+def _take(idx, e, R, t):
+    """Candidates idx (..., 1) along the candidate axis K of e (..., K),
+    R (..., K, 3, 3) and t (..., K, 3)."""
+    return (torch.take_along_dim(e, idx, -1)[..., 0],
+            torch.take_along_dim(R, idx[..., None, None], -3)[..., 0, :, :],
+            torch.take_along_dim(t, idx[..., None], -2)[..., 0, :])
+
+
+def _p4pf_errors(Xw, obs_px, fs):
+    """For focals fs (..., S) of problems Xw (..., 4, 3), obs_px (..., 4, 2):
+    P3P on points 0..2, the root that best reprojects point 3.  Returns
+    (err4 (..., S), R (..., S, 3, 3), t (..., S, 3)); invalid roots score
+    +inf."""
+    S = fs.shape[-1]
+    R, t, valid = p3p_grunert(
+        Xw[..., None, :3, :].expand(*fs.shape[:-1], S, 3, 3),
+        _bearings(obs_px[..., None, :3, :], fs))          # (..., S, 4, ...)
+    e4 = reproj_errors_px(R, t, fs[..., None], Xw[..., None, None, 3:4, :],
+                          obs_px[..., None, None, 3:4, :])[..., 0]
+    e4 = torch.where(valid, e4, torch.inf)
+    return _take(torch.argmin(e4, dim=-1, keepdim=True), e4, R, t)
+
+
+def p4pf(Xw, obs_px, f_hyp, num_focal_samples: int = 128,
+         newton_iters: int = 6, f_lo: float = 0.3, f_hi: float = 5.0):
+    """Pose + focal from exactly 4 points (ref absolute_pose_via_p4pf).
+
+    A batched focal sweep replaces the reference's generated Groebner
+    template: P3P on points 0..2 for every focal sample at once, scored by
+    the 4th point's reprojection, then Newton steps on log f by central
+    differences (the three focals of a step in one batch, the step clipped
+    to +-0.2); the polished result replaces the swept one only if better.
+
+    Xw (..., 4, 3) world points; obs_px (..., 4, 2) centered pixels
+    (leading axes are problems, all solved in one batch); f_hyp focal
+    hypothesis (e.g. 1.2 * max(w, h)).
+    Returns dict R (..., 3, 3), t (..., 3), f (...), err4 (...) 4th-point
+    error px, valid (...).
+    """
+    dt, dev = Xw.dtype, Xw.device
+    lead = Xw.shape[:-2]
+    fs = _focal_sweep(f_hyp, num_focal_samples, f_lo, f_hi, dt, dev)
+    fs = fs.expand(*lead, fs.shape[0])
+    e4s, Rs, ts = _p4pf_errors(Xw, obs_px, fs)
+    bi = torch.argmin(e4s, dim=-1, keepdim=True)
+    f_swept = torch.take_along_dim(fs, bi, -1)[..., 0]
+    e_swept, R_swept, t_swept = _take(bi, e4s, Rs, ts)
+
+    h = 1e-3
+    offs = torch.tensor([-h, 0.0, h], dtype=dt, device=dev)
+    lf = torch.log(f_swept)
+    for _ in range(newton_iters):
+        e0, e1, e2 = _p4pf_errors(Xw, obs_px,
+                                  torch.exp(lf[..., None] + offs))[0].unbind(-1)
+        g = (e2 - e0) / (2 * h)
+        H = (e2 - 2 * e1 + e0) / (h * h)
+        step = torch.where(H > 1e-9, g / H, 0.0)
+        lf = lf - torch.clamp(step, -0.2, 0.2)
+    f_fin = torch.exp(lf)
+    e4, R_fin, t_fin = _p4pf_errors(Xw, obs_px, f_fin[..., None])
+    e4, R_fin, t_fin = e4[..., 0], R_fin[..., 0, :, :], t_fin[..., 0, :]
+    better = e4 < e_swept
+    e_fin = torch.minimum(e4, e_swept)
+    return {"R": torch.where(better[..., None, None], R_fin, R_swept),
+            "t": torch.where(better[..., None], t_fin, t_swept),
+            "f": torch.where(better, f_fin, f_swept), "err4": e_fin,
+            "valid": torch.isfinite(e_fin)}
+
+
+def _ridge_solve(A, b, ww):
+    """Row-weighted least squares by the normal equations, 1e-9 ridge."""
+    Aw = A * ww
+    eye = torch.eye(A.shape[1], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve(Aw.T @ A + 1e-9 * eye, Aw.T @ b)
+
+
+def dlt_oriented(R, Xw, obs_px, f=None, weights=None):
+    """Position (+ optional focal) given a known rotation (ref
+    absolute_pose_via_dlt_oriented.{h,cc}).
+
+    With R fixed, projection is linear in the remaining unknowns.  Known
+    f: a 2N x 3 least squares for t.  Unknown f: with s = f t_xy the
+    system is linear in (f, s_x, s_y, t_z), and t_xy = s / f.  Both normal
+    systems carry a 1e-9 ridge.
+    R (3, 3) world->camera; Xw (N, 3); obs_px (N, 2); weights (N,).
+    Returns dict t (3,), f ().
+    """
+    dt, dev = Xw.dtype, Xw.device
+    Xc = Xw @ R.T                                   # rotated points
+    u, v = obs_px[:, 0], obs_px[:, 1]
+    N = Xw.shape[0]
+    w = torch.ones((N,), dtype=dt, device=dev) if weights is None \
+        else weights
+    zeros = torch.zeros_like(u)
+    ones = torch.ones_like(u)
+    ww = torch.cat([w, w])[:, None]
+    if f is not None:
+        # f (Xc_x + t_x) = u (Xc_z + t_z): rows linear in t
+        A = torch.cat([torch.stack([f * ones, zeros, -u], dim=-1),
+                       torch.stack([zeros, f * ones, -v], dim=-1)])
+        b = torch.cat([u * Xc[:, 2] - f * Xc[:, 0],
+                       v * Xc[:, 2] - f * Xc[:, 1]])
+        return {"t": _ridge_solve(A, b, ww),
+                "f": torch.as_tensor(f, dtype=dt, device=dev)}
+    # unknowns (f, s_x, s_y, t_z): f Xc_x + s_x - u t_z = u Xc_z
+    A = torch.cat([torch.stack([Xc[:, 0], ones, zeros, -u], dim=-1),
+                   torch.stack([Xc[:, 1], zeros, ones, -v], dim=-1)])
+    b = torch.cat([u * Xc[:, 2], v * Xc[:, 2]])
+    x = _ridge_solve(A, b, ww)
+    f_est = x[0]
+    fsafe = torch.where(torch.abs(f_est) < _EPS, _EPS, f_est)
+    return {"t": torch.stack([x[1] / fsafe, x[2] / fsafe, x[3]]),
+            "f": f_est}

@@ -1,6 +1,7 @@
-"""Synthetic rendered-image scenes with exact ground truth.
+"""Synthetic rendered-image scenes with exact ground truth, and the
+synthetic large-scale BA problem.
 
-Counterpart of the scene fixtures of metricsfm_tpu/utils/synth.py: a
+Counterpart of the fixtures of metricsfm_tpu/utils/synth.py: a
 piecewise-planar textured scene rendered from N pinhole cameras by exact
 homography inverse-warping (compositing near-over-far gives parallax and
 occlusion — a non-planar scene, not degenerate for F estimation).  Host
@@ -368,6 +369,62 @@ def stereo_pair(rng: np.random.Generator, H: int = 96, W: int = 160,
     col = np.where(last >= 0, src[ys, np.maximum(last, 0)], 0)
     right = left[ys, col]
     return left, right, disp
+
+
+def synthetic_ba_problem(n_cams: int = 1024, n_pts: int = 131072,
+                         max_views: int = 6, seed: int = 0,
+                         noise_pose: float = 0.01, noise_pt: float = 0.05,
+                         focal: float = 1000.0, *, device="cuda"):
+    """Large-scale synthetic BAProblem (the BASELINE 1k-camera shape), on
+    `device`.
+
+    Cameras sweep an arc over a point cloud; each point is observed by a
+    window of `max_views` consecutive cameras (bounded per-camera slot
+    counts, the realistic sparsity of a survey).  Observations are exact
+    projections of the ground truth; poses and points are returned
+    perturbed.  Camera 0 is fixed and the intrinsics are held constant.
+    Host numpy from `np.random.default_rng(seed)`: the same draws as the
+    JAX package's synthetic_ba_problem.
+    """
+    from ..ba import problem as ba_problem
+    from . import device as device_util
+
+    dev = device_util.resolve(device)
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-40, 40, size=(n_pts, 3))
+    pts[:, 2] += 80.0
+    poses = np.zeros((n_cams, 6))
+    for i in range(n_cams):
+        ang = (i - n_cams / 2) * (2.0 / n_cams)
+        c = np.array([np.sin(ang) * 80.0, 2.0 * np.sin(2 * ang),
+                      80.0 - np.cos(ang) * 80.0])
+        z = np.array([0.0, 0.0, 80.0]) + rng.normal(0, 3.0, 3) - c
+        z /= np.linalg.norm(z)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        poses[i] = np.concatenate([np_geom.matrix_to_angle_axis(R), -R @ c])
+    intrs = np.tile(np.array([[focal, 0.0, 0.0]]), (n_cams, 1))
+
+    track_cam = ((rng.integers(0, n_cams, size=n_pts)[:, None]
+                  + np.arange(max_views)[None, :]) % n_cams).astype(np.int32)
+    camf = track_cam.reshape(-1)
+    # exact pinhole projection, host numpy
+    Rts = [np_geom.pose_to_Rt(p) for p in poses]
+    Rs = np.stack([R for R, _ in Rts])
+    ts = np.stack([t for _, t in Rts])
+    Xc = (np.einsum("nij,nj->ni", Rs[camf],
+                    np.repeat(pts, max_views, axis=0)) + ts[camf])
+    zc = np.where(np.abs(Xc[:, 2]) < 1e-9, 1e-9, Xc[:, 2])
+    track_uv = (focal * Xc[:, :2] / zc[:, None]).reshape(
+        n_pts, max_views, 2)
+    pose_mut = np.ones((n_cams,))
+    pose_mut[0] = 0.0
+    return ba_problem.build_problem(
+        poses + rng.normal(0, noise_pose, poses.shape), intrs,
+        np.arange(n_cams), pts + rng.normal(0, noise_pt, pts.shape),
+        track_cam, track_uv, np.ones((n_pts, max_views), bool),
+        pose_mut=pose_mut, intr_mut=np.zeros((n_cams,)), device=dev)
 
 
 def write_stereo_sure(path: str, names, width: int, height: int,

@@ -34,6 +34,17 @@ MODULES = [
     "metricsfm_tpu_torch.models.slam_gps",
     "metricsfm_tpu_torch.ops.homography",
     "metricsfm_tpu_torch.ops.kmeans",
+    "metricsfm_tpu_torch.ops.essential_matching",
+    "metricsfm_tpu_torch.ops.ransac",
+    "metricsfm_tpu_torch.ops.pnp",
+    "metricsfm_tpu_torch.ops.lines",
+    "metricsfm_tpu_torch.ops.gist",
+    "metricsfm_tpu_torch.ops.panorama",
+    "metricsfm_tpu_torch.utils.geo_verification",
+    "metricsfm_tpu_torch.utils.calibration",
+    "metricsfm_tpu_torch.utils.pso",
+    "metricsfm_tpu_torch.models.accuracy",
+    "metricsfm_tpu_torch.io.store",
 ]
 
 
