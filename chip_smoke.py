@@ -115,8 +115,28 @@ and the script exits non-zero:
      the synthetic BA problem at 1,024 cameras x 131,072 points solved
      with bench.py's production LMConfig (cost must drop; LM
      iterations/s printed);
+ 13. the multi-GPU path on torch.distributed (`mesh_phase`): 13a at
+     world size 1 through NCCL in this process, solve_lm_sharded on phase
+     12h's BA problem with 0.5 px of seeded noise on its observations
+     (`mesh_ba_problem`: without it the 8 iterations stop mid-descent,
+     where solve_lm on the card differs from itself by ~1e-2) against
+     solve_lm (the same iterations, final cost within 1e-4 relative; LM
+     iterations/s of both, solve_lm's spread over two calls and the cost
+     of one all-reduce of the CG matvec printed) and match_pairs_sharded on 32
+     pairs x 4,096 x 128 through 2a (count reset just before, read just
+     after) against match_pair (idx2, good and all equal); 13b two spawned
+     ranks sharing the card through gloo: the same BA problem and matcher
+     with the same gates, MatchGraphBuilder(mesh=) on 4c's 24 rendered
+     1024x768 views (equal to the unsharded graph at the same
+     batch_pairs), SLAMGPS(mesh=).run(rematch=True) on 24 keyframes of
+     11b's street at 1280x720 (the same verified pairs, matches and tracks
+     as one rank; median UTM error < 1 m) and `cli sfm` at 2 ranks on
+     phase 4's 8 views (8/8 registered by rank 0, ATE < 0.05); every rank
+     prints its backend, its card and its 2a launches, a rank that fails
+     or outlives the deadline fails the phase;
  10. print the paths' numbers, the kernel table (2a-2h, launches summed
-     over the paths), the card line and the result line.
+     over the paths, phase 13's ranks included), the card line and the
+     result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
 of each end-to-end path (the aerial one device activity only, no trace).
 A failed build raises with its nvcc log; to keep a whole run's record,
@@ -2655,6 +2675,648 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
     return launches, stats
 
 
+# -- multi-GPU (phase 13) ----------------------------------------------------
+# The port's SPMD path on torch.distributed.  13a runs world size 1 through
+# NCCL in this process; 13b spawns two ranks that share the card through
+# gloo (NCCL cannot put two ranks on one GPU).  Two ranks on one card
+# measure correctness and the collectives' overhead, not scaling.
+
+MESH_RANKS = 2
+MESH_JOIN_S = 600.0
+
+
+def mesh_lm_config():
+    """Phase 12h's LMConfig (bench.py's production one)."""
+    from metricsfm_tpu_torch.ba.lm import LMConfig
+    return LMConfig(max_iterations=8, cg_iterations=50, cg_tol=1e-4,
+                    cg_forcing=True, rtol=0.0)
+
+
+# The sharded LM's cases: (label, observation noise in px, LM iterations,
+# the gaps to solve_lm gated at 1e-4 besides the iteration count).  Two
+# solve_lm calls on the card part as the sums through index_add_'s atomics
+# and the forcing sequence's loose CG solves amplify: on 12h's exact
+# problem by 5.6e-6 of cost and 4.5e-5 in the poses after 2 iterations,
+# 2.7e-2 and 6.3e-3 after 8, mid-descent; with 0.5 px of noise the 8
+# iterations end on the floor, cost within 6.3e-6, the poses still 5.1e-3
+# apart (tools/probe_lm_repeat.py).  So the full gate runs 2 iterations of
+# the exact problem, the cost gate 8 of the noisy one, and the 8 exact
+# iterations (12h's run) are timed.
+LM_CASES = (("exact, 8 iterations", 0.0, 8, ()),
+            ("exact, 2 iterations", 0.0, 2, ("cost", "rms_px", "poses")),
+            ("noisy, 8 iterations", 0.5, 8, ("cost", "rms_px")))
+
+
+def mesh_ba_problem(device, n_cams, n_pts, noise_px=0.5, seed=5):
+    """Phase 12h's problem (`synthetic_ba_problem`), with seeded Gaussian
+    noise of `noise_px` on its observations, the same in every process."""
+    import torch
+    from metricsfm_tpu_torch.utils import synth
+
+    prob = synth.synthetic_ba_problem(n_cams=n_cams, n_pts=n_pts,
+                                      device=device)
+    if not noise_px:
+        return prob
+    g = torch.Generator().manual_seed(seed)
+    noise = noise_px * torch.randn(prob.track_uv.shape, generator=g)
+    return prob._replace(track_uv=prob.track_uv + noise.to(device)
+                         * prob.track_mask[..., None])
+
+
+def lm_cases(device, plan, solve):
+    """solve(problem, cfg) -> (solved, info) on every case of LM_CASES,
+    after a 1-iteration warm-up; {label: info, seconds, poses, LM
+    iterations/s}, and "dofs", the reduced camera system's size."""
+    cfg = mesh_lm_config()
+    probs = {noise: mesh_ba_problem(device, *plan["ba"], noise_px=noise)
+             for noise in {c[1] for c in LM_CASES}}
+    solve(probs[0.0], cfg._replace(max_iterations=1))
+    out = {"dofs": probs[0.0].n_camera_dofs}
+    for label, noise, iters, _ in LM_CASES:
+        (solved, info), dt = timed(
+            lambda: solve(probs[noise], cfg._replace(max_iterations=iters)),
+            device)
+        out[label] = {"info": info, "seconds": dt, "poses": poses_of(solved),
+                      "lm_iterations_per_s": info["iterations"] / dt}
+    return out
+
+
+def mesh_match_batch(device, n_pairs, n_kp, seed=3):
+    """The matcher's pairs, the same in every process: seeded non-negative
+    unit descriptors, each pair's database a noisy copy of its queries
+    (the ratio tests keep most rows), the last eighth of each database
+    masked."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d1 = np.abs(rng.normal(size=(n_pairs, n_kp, 128))).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 = d1 + 0.05 * np.abs(rng.normal(size=d1.shape)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    m1 = np.ones((n_pairs, n_kp), bool)
+    m2 = m1.copy()
+    m2[:, n_kp - n_kp // 8:] = False
+    return [torch.from_numpy(a).to(device) for a in (d1, d2, m1, m2)]
+
+
+def matcher_mismatches(res, batch):
+    """Rows of idx2 / good / all that differ from the per-pair match_pair
+    (its launches are a comparison's, not the path's)."""
+    from metricsfm_tpu_torch.ops import matching
+
+    d1, d2, m1, m2 = batch
+    bad = 0
+    for b in range(d1.shape[0]):
+        want = matching.match_pair(d1[b], d2[b], m1[b], m2[b])
+        for k in ("idx2", "good", "all"):
+            bad += int((res[k][b] != want[k]).sum())
+    return bad
+
+
+def sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed(fn, dev):
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def collective_ms(mesh, n, reps=200):
+    """Milliseconds of one all-reduce of n float32 (the size of a CG
+    iteration's matvec sum), averaged over `reps` after 10 warm-ups."""
+    import torch
+
+    x = torch.ones(n, device=mesh.device)
+    for _ in range(10):
+        mesh.psum(x)
+    _, dt = timed(lambda: [mesh.psum(x) for _ in range(reps)], mesh.device)
+    return 1e3 * dt / reps
+
+
+def mesh_sharded_lm(mesh, plan):
+    """solve_lm_sharded on every LM case (lm_cases), and the cost of one
+    all-reduce of the CG matvec."""
+    from metricsfm_tpu_torch.parallel.sharded_ba import solve_lm_sharded
+
+    out = lm_cases(mesh.device, plan,
+                   lambda prob, cfg: solve_lm_sharded(prob, mesh, cfg))
+    out["collective_ms"] = collective_ms(mesh, out.pop("dofs"))
+    return out
+
+
+def poses_of(problem):
+    return problem.poses.double().cpu().numpy()
+
+
+def mesh_matcher(mesh, plan):
+    """match_pairs_sharded on the matcher's pairs, the 2a count reset just
+    before and read just after; then every pair against match_pair."""
+    from metricsfm_tpu_torch.ops import matching
+    from metricsfm_tpu_torch.parallel.sharded_matching import \
+        match_pairs_sharded
+
+    batch = mesh_match_batch(mesh.device, *plan["match"])
+    sync(mesh.device)
+    matching.knn2_gather.launches = 0
+    res, dt = timed(lambda: match_pairs_sharded(*batch, mesh), mesh.device)
+    launches = matching.knn2_gather.launches
+    return {"launches": launches, "seconds": dt,
+            "mismatches": matcher_mismatches(res, batch)}
+
+
+def mesh_rank(rank, world, port, plan_path):
+    """One rank of 13b: bring up the group through the launcher
+    environment (gloo: the ranks share the card), run the sharded LM, the
+    matcher, MatchGraphBuilder(mesh=), SLAMGPS(mesh=) and `cli sfm`, each
+    with the 2a count reset just before and read just after, and pickle
+    the results to result_<rank>.pkl beside the plan."""
+    import pickle
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    with open(plan_path) as f:
+        plan = json.load(f)
+    import torch
+    import torch.distributed as dist
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.config import GraphOptions, street_preset
+    from metricsfm_tpu_torch.models import slam_gps
+    from metricsfm_tpu_torch.models.database import Database
+    from metricsfm_tpu_torch.models.match_graph import (MatchGraphBuilder,
+                                                        candidates_all)
+    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.parallel import mesh as pm
+
+    pm.initialize_distributed(device=plan["device"],
+                              timeout_s=MESH_JOIN_S / 2)
+    mesh = pm.make_global_mesh()
+    dev = mesh.device
+    out = {"backend": mesh.backend, "device": str(dev),
+           "card": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "cpu")}
+    out["lm"] = mesh_sharded_lm(mesh, plan)
+    out["matcher"] = mesh_matcher(mesh, plan)
+
+    db = Database(plan["web_fold"], web_db_options(plan["web_kp"]),
+                  device=dev)
+    feats = {i: db.features(i) for i in range(db.n_images)}
+    sync(dev)
+    matching.knn2_gather.launches = 0
+    graph, dt = timed(lambda: MatchGraphBuilder(
+        GraphOptions(), batch_pairs=plan["batch_pairs"], mesh=mesh).build(
+            feats, candidates_all(db.n_images)), dev)
+    out["graph"] = {"launches": matching.knn2_gather.launches,
+                    "seconds": dt, "matches": {k: (v.kp_i, v.kp_j)
+                                               for k, v in graph.items()}}
+
+    pipe = slam_gps.SLAMGPS(street_preset(), mesh=mesh)
+    rec = {}
+    record_result(pipe, "feature_matching", rec)
+    sync(dev)
+    matching.knn2_gather.launches = 0
+    scene, dt = timed(lambda: pipe.run(plan["street_mesh"], rematch=True),
+                      dev)
+    out["slam"] = {"launches": matching.knn2_gather.launches, "seconds": dt,
+                   "stats": dict(pipe.stats),
+                   "matches": rec["feature_matching"],
+                   "tracks": [dict(t.obs) for t in scene.tracks]}
+
+    sync(dev)
+    matching.knn2_gather.launches = 0
+    scenes, dt = timed(lambda: cli.main(
+        ["sfm", plan["sfm_fold"], "--mode", "web", "--matching", "all",
+         "--no-resize", "--max-kp", str(plan["sfm_kp"]), "--device",
+         dev.type]), dev)
+    out["cli"] = {"launches": matching.knn2_gather.launches, "seconds": dt,
+                  "centers": [{i: np_geom.camera_center(s.poses[i]).tolist()
+                               for i in s.registered} for s in scenes]}
+    print(f"  rank {rank}/{world}: backend {out['backend']}, card "
+          f"{out['card']}, 2a launches: matcher "
+          f"{out['matcher']['launches']}, graph {out['graph']['launches']}, "
+          f"slam {out['slam']['launches']}, cli sfm "
+          f"{out['cli']['launches']}", flush=True)
+    with open(os.path.join(os.path.dirname(plan_path),
+                           f"result_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def record_result(obj, name, rec):
+    """Keep what obj.name returns in rec[name]."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        rec[name] = fn(*a, **k)
+        return rec[name]
+    setattr(obj, name, wrapped)
+
+
+def web_db_options(max_kp):
+    import dataclasses
+
+    from metricsfm_tpu_torch.config import PRESETS
+    return dataclasses.replace(PRESETS["web"]().database, resize=False,
+                               max_keypoints=max_kp)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_alone(rank, size, device):
+    """Rank `rank` of a `size`-rank mesh run alone in this process, with no
+    group: it computes its own rows of every split batch, and a gather
+    gives back zeros in the other ranks' rows (so none of their pairs
+    verifies).  The graphs of every rank run alone, put together, are
+    what the ranks compute in a group; they differ from the unsplit graph
+    only by the batch size each rank's arithmetic runs at."""
+    import torch
+    from metricsfm_tpu_torch.parallel.mesh import Mesh
+
+    class RankAlone(Mesh):
+        def all_gather_rows(self, t):
+            n = t.shape[0]
+            buf = torch.zeros((self.size * n, *t.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            buf[self.rank * n:(self.rank + 1) * n] = t
+            return buf
+
+    return RankAlone(None, rank, size, device)
+
+
+def mesh_references(root, plan):
+    """13's set-up and single-process references on the card: solve_lm of
+    the BA problem (twice: its spread on the card); 4c's views rendered
+    with their features stored, the unsharded graph, and each rank's
+    share of the split graph run alone (rank_alone); the street fold with its keyframe features stored,
+    copied twice, and the one-rank SLAMGPS run on one copy; the 8 views of
+    phase 4 written for `cli sfm`."""
+    import numpy as np
+    from metricsfm_tpu_torch.ba.lm import solve_lm
+    from metricsfm_tpu_torch.config import GraphOptions, street_preset
+    from metricsfm_tpu_torch.models import slam_gps
+    from metricsfm_tpu_torch.models.database import Database
+    from metricsfm_tpu_torch.models.match_graph import (MatchGraphBuilder,
+                                                        candidates_all)
+    from metricsfm_tpu_torch.utils import synth
+
+    dev = plan["device"]
+    ref = {}
+    ref["lm"] = lm_cases(dev, plan, solve_lm)
+    # solve_lm against itself: on the card its sums through index_add_
+    # run in an order that varies from call to call
+    again = lm_cases(dev, plan, solve_lm)
+    for label, *_ in LM_CASES:
+        ref["lm"][label]["repeat"] = lm_gaps(again[label],
+                                             ref["lm"][label])
+
+    w, h = plan["web_size"]
+    gt = synth.render_scene(seed=0, n_cams=plan["web_views"], width=w,
+                            height=h, focal=1.1 * w, arc_step=0.03)
+    synth.write_scene_images(plan["web_fold"], gt)
+    db = Database(plan["web_fold"], web_db_options(plan["web_kp"]),
+                  device=dev)
+    db.feature_extraction()
+    feats = {i: db.features(i) for i in range(db.n_images)}
+    graph = MatchGraphBuilder(GraphOptions(), batch_pairs=plan["batch_pairs"],
+                              device=dev).build(
+        feats, candidates_all(db.n_images))
+    ref["graph"] = {k: (v.kp_i, v.kp_j) for k, v in graph.items()}
+    # each rank's share of the split batches, run alone in this process
+    ref["graph_ranks"] = {}
+    for r in range(MESH_RANKS):
+        graph = MatchGraphBuilder(
+            GraphOptions(), batch_pairs=plan["batch_pairs"],
+            mesh=rank_alone(r, MESH_RANKS, dev)).build(
+                feats, candidates_all(db.n_images))
+        ref["graph_ranks"].update({k: (v.kp_i, v.kp_j)
+                                   for k, v in graph.items()})
+
+    src = os.path.join(root, "street_src")
+    sw, sh = plan["street_size"]
+    ref["street_gt"], _ = street_rematch_fold(
+        src, plan["street_n"], plan["street_pts"], device=dev, width=sw,
+        height=sh)
+    pipe = slam_gps.SLAMGPS(street_preset(), device=dev)
+    pipe.feature_extraction(src, slam_gps.read_slam(
+        os.path.join(src, "KeyFramePts.txt")))
+    for name in ("street_one", "street_mesh"):
+        shutil.copytree(src, plan[name])
+    pipe = slam_gps.SLAMGPS(street_preset(), device=dev)
+    rec = {}
+    record_result(pipe, "feature_matching", rec)
+    scene = pipe.run(plan["street_one"], rematch=True)
+    ref["slam"] = {"stats": dict(pipe.stats),
+                   "matches": rec["feature_matching"],
+                   "tracks": [dict(t.obs) for t in scene.tracks]}
+
+    w, h = plan["sfm_size"]
+    gt = synth.render_scene(seed=0, n_cams=plan["sfm_views"], width=w,
+                            height=h, focal=1.1 * w)
+    synth.write_scene_images(plan["sfm_fold"], gt)
+    ref["sfm_centers"] = np.asarray(gt["centers"])
+    return ref
+
+
+def mesh_world1(plan):
+    """13a: world size 1 through NCCL (gloo without a card) in this
+    process: solve_lm_sharded against solve_lm (the same iterations, final
+    cost within 1e-4 relative), match_pairs_sharded through 2a (count
+    reset just before, read just after) against match_pair."""
+    import torch.distributed as dist
+    from metricsfm_tpu_torch.parallel import mesh as pm
+
+    pm.initialize_distributed(coordinator_address=f"localhost:{free_port()}",
+                              num_processes=1, process_id=0,
+                              device=plan["device"],
+                              timeout_s=MESH_JOIN_S / 2)
+    try:
+        mesh = pm.make_global_mesh()
+        want = "nccl" if mesh.device.type == "cuda" else "gloo"
+        if mesh.backend != want:
+            raise AssertionError(f"13a: backend {mesh.backend}, want {want}")
+        out = {"backend": mesh.backend, "lm": mesh_sharded_lm(mesh, plan),
+               "matcher": mesh_matcher(mesh, plan)}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def mesh_two_ranks(root, plan_path):
+    """13b: spawn MESH_RANKS ranks (gloo: they share the card), join them
+    with a deadline, fail on any rank's exit code, and return their
+    results in rank order."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, MESH_RANKS, port, plan_path))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"13b: rank exit codes {codes}")
+    out = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(root, f"result_{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def match_agreement(got, want):
+    """(the same pairs, pairs whose matches are bit-equal, the least
+    overlap |got & want| / max(|got|, |want|) of a pair's matches) between
+    two {pair: (kp_i, kp_j)} graphs."""
+    import numpy as np
+
+    same = set(got) == set(want)
+    equal, least = 0, 1.0
+    for k in set(got) & set(want):
+        a = set(zip(*(np.asarray(v).tolist() for v in got[k])))
+        b = set(zip(*(np.asarray(v).tolist() for v in want[k])))
+        equal += a == b
+        least = min(least, len(a & b) / max(len(a), len(b), 1))
+    return same, equal, least
+
+
+def track_agreement(got, want):
+    """Share of `want`'s tracks (observation dicts) that `got` has too."""
+    have = {frozenset(t.items()) for t in got}
+    return sum(frozenset(t.items()) in have for t in want) / max(len(want),
+                                                               1)
+
+
+def pose_gaps(a, b):
+    """The largest absolute difference of two solves' poses (C, 6) of
+    synthetic_ba_problem: raw, and modulo its one gauge freedom, the scale
+    about camera 0's center (camera 0 is fixed and the intrinsics held):
+    a's centers scaled about its camera 0 by the factor that best maps
+    them onto b's.  Returns (raw, modulo the scale, the factor - 1)."""
+    import numpy as np
+    from metricsfm_tpu_torch.ops import np_geom
+
+    Ra = [np_geom.angle_axis_to_matrix(p[:3]) for p in a]
+    ca = np.stack([-R.T @ p[3:] for R, p in zip(Ra, a)])
+    cb = np.stack([np_geom.camera_center(p) for p in b])
+    da, db = ca - ca[0], cb - cb[0]
+    s = float((da * db).sum() / max(float((da * da).sum()), 1e-300))
+    t = np.stack([-R @ (ca[0] + s * d) for R, d in zip(Ra, da)])
+    aligned = np.concatenate([a[:, :3], t], axis=1)
+    return (float(abs(a - b).max()), float(abs(aligned - b).max()), s - 1)
+
+
+def lm_gaps(got, ref):
+    """A solve's gaps to a reference solve: final cost and rms_px
+    relative; poses the largest absolute difference, raw and modulo the
+    scale gauge (pose_gaps)."""
+    gi, ri = got["info"], ref["info"]
+    raw, mod_scale, scale = pose_gaps(got["poses"], ref["poses"])
+    return {"iterations": (gi["iterations"], ri["iterations"]),
+            "cost": abs(gi["final_cost"] - ri["final_cost"])
+            / ri["final_cost"],
+            "rms_px": abs(gi["rms_px"] - ri["rms_px"]) / ri["rms_px"],
+            "poses": raw, "poses_mod_scale": mod_scale, "scale": scale}
+
+
+def lm_gate(label, got, ref, fails):
+    """The sharded solves against solve_lm on every LM case: the same
+    iterations, and the case's gated gaps within 1e-4 (relative for cost
+    and rms_px, absolute for the poses).  Returns the gaps by case."""
+    gaps = {}
+    for case, _, _, gated in LM_CASES:
+        g, r = got[case], ref[case]
+        gap, rep = lm_gaps(g, r), r["repeat"]
+        gi = g["info"]
+        print(f"  {label}, {case}: {gi['iterations']} LM iterations in "
+              f"{g['seconds']:.3f} s = {g['lm_iterations_per_s']:.4f} "
+              f"iterations/s (solve_lm {r['lm_iterations_per_s']:.4f}); "
+              f"cost {gi['initial_cost']:.6e} -> {gi['final_cost']:.6e}; "
+              "gaps to solve_lm (solve_lm against itself): cost "
+              f"{gap['cost']:.3e} ({rep['cost']:.3e}), rms_px "
+              f"{gap['rms_px']:.3e} ({rep['rms_px']:.3e}), poses "
+              f"{gap['poses']:.3e} ({rep['poses']:.3e}), modulo the scale "
+              f"{gap['poses_mod_scale']:.3e} ({rep['poses_mod_scale']:.3e});"
+              f" gated: iterations{''.join(', ' + k for k in gated)}",
+              flush=True)
+        if gap["iterations"][0] != gap["iterations"][1] or not all(
+                gap[k] <= 1e-4 for k in gated):
+            fails.append(f"{label}, {case}: {gap} against solve_lm")
+        gaps[case] = gap
+    print(f"  {label}: one all-reduce of the CG matvec "
+          f"{got['collective_ms']:.4f} ms", flush=True)
+    return gaps
+
+
+def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
+               web_views=24, web_size=(1024, 768), web_kp=4096,
+               street_n=24, street_pts=1440, street_size=(STREET_W, STREET_H),
+               sfm_views=8, sfm_size=(1024, 768), sfm_kp=4096,
+               batch_pairs=32):
+    """13: the multi-GPU path.  Returns (2a launches of 13a and of every
+    rank of 13b, stats).  `device="cpu"` with small sizes rehearses it on
+    the CPU (gloo throughout)."""
+    import numpy as np
+    from metricsfm_tpu_torch.utils import synth
+
+    root = tempfile.mkdtemp(prefix="msf_smoke_mesh_")
+    plan = {"device": device, "ba": list(ba), "match": list(match),
+            "web_views": web_views, "web_size": list(web_size),
+            "web_kp": web_kp, "web_fold": os.path.join(root, "web"),
+            "street_n": street_n, "street_pts": street_pts,
+            "street_size": list(street_size),
+            "street_one": os.path.join(root, "street_one"),
+            "street_mesh": os.path.join(root, "street_mesh"),
+            "sfm_views": sfm_views, "sfm_size": list(sfm_size),
+            "sfm_kp": sfm_kp, "sfm_fold": os.path.join(root, "sfm"),
+            "batch_pairs": batch_pairs}
+    plan_path = os.path.join(root, "plan.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    try:
+        t0 = time.perf_counter()
+        ref = mesh_references(root, plan)
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w1 = mesh_world1(plan)
+        w1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = mesh_two_ranks(root, plan_path)
+        w2_s = time.perf_counter() - t0
+        street_err = street_gates(plan["street_mesh"], ref["street_gt"],
+                                  street_n)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  set-up and single-process references {ref_s:.3f} s, 13a "
+          f"{w1_s:.3f} s, 13b {w2_s:.3f} s ({card})", flush=True)
+
+    # a CPU rehearsal runs the kernels' plain versions: no launch to count
+    need = 1 if device == "cuda" else 0
+    fails = []          # every gate is read before the phase fails
+    stats = {"13a": {"backend": w1["backend"]}, "13b": {}}
+    gap = lm_gate(f"13a sharded LM, world 1 ({w1['backend']})", w1["lm"],
+                  ref["lm"], fails)
+    timed_case = LM_CASES[0][0]
+    stats["13a"]["lm"] = {"lm_iterations_per_s":
+                          w1["lm"][timed_case]["lm_iterations_per_s"],
+                          "solve_lm_iterations_per_s":
+                          ref["lm"][timed_case]["lm_iterations_per_s"],
+                          "gaps": gap,
+                          "collective_ms": w1["lm"]["collective_ms"]}
+    m = w1["matcher"]
+    print(f"  13a match_pairs_sharded {match[0]} pairs x {match[1]}: "
+          f"{m['launches']} 2a launch, {m['seconds']:.4f} s, "
+          f"{m['mismatches']} entries differ from match_pair", flush=True)
+    if m["launches"] < need or m["mismatches"]:
+        fails.append(f"13a matcher: {m}")
+    stats["13a"]["matcher_seconds"] = m["seconds"]
+    launches = [m["launches"]]
+    for r, res in enumerate(ranks):
+        label = f"13b rank {r}/{MESH_RANKS}"
+        if res["backend"] != "gloo":
+            fails.append(f"{label}: backend {res['backend']}")
+        gap = lm_gate(f"{label} sharded LM ({res['backend']}, "
+                      f"{res['card']})", res["lm"], ref["lm"], fails)
+        m = res["matcher"]
+        if m["launches"] < need or m["mismatches"]:
+            fails.append(f"{label} matcher: {m}")
+        # the split graph is what each rank computes alone on its rows
+        # with the whole batch's draws, bit for bit; against the unsplit
+        # graph (equal on the CPU, tests/test_torch_parallel.py) it may
+        # differ only where a rank's smaller batch rounds otherwise on the
+        # card: the same pairs, at least 97 % of them bit-equal, the rest
+        # overlapping >= 0.99; the re-match likewise against one rank
+        alone = match_agreement(res["graph"]["matches"], ref["graph_ranks"])
+        same, equal, least = match_agreement(res["graph"]["matches"],
+                                             ref["graph"])
+        s = res["slam"]
+        s_same, s_equal, s_least = match_agreement(s["matches"],
+                                                   ref["slam"]["matches"])
+        tracks = track_agreement(s["tracks"], ref["slam"]["tracks"])
+        print(f"  {label}: match graph {'the same' if same else 'other'} "
+              f"{len(ref['graph'])} pairs, {equal} bit-equal, least "
+              f"overlap {least:.4f}; against the ranks run alone "
+              f"{'the same' if alone[0] else 'other'} pairs, {alone[1]}/"
+              f"{len(ref['graph_ranks'])} bit-equal; re-match "
+              f"{s['stats']} (one rank {ref['slam']['stats']}), "
+              f"{s_equal}/{len(s['matches'])} pairs bit-equal, least "
+              f"overlap {s_least:.4f}; {len(s['tracks'])} tracks (one rank "
+              f"{len(ref['slam']['tracks'])}), {tracks:.4f} of one rank's "
+              f"identical", flush=True)
+        if not (alone[0] and alone[1] == len(ref["graph_ranks"])):
+            fails.append(f"{label}: the split graph differs from its ranks "
+                         f"run alone ({alone})")
+        if not (same and equal >= 0.97 * len(ref["graph"])
+                and least >= 0.99):
+            fails.append(f"{label}: the sharded match graph differs from "
+                         f"the unsharded one ({same}, {equal}, {least})")
+        if not (s_same and s_equal >= 0.97 * len(s["matches"])
+                and s_least >= 0.99 and tracks >= 0.99
+                and s["stats"]["prior_pairs"]
+                == ref["slam"]["stats"]["prior_pairs"]):
+            fails.append(f"{label}: the re-match differs from one rank's "
+                         f"({s_same}, {s_equal}, {s_least}, {tracks})")
+        for path in ("matcher", "graph", "slam", "cli"):
+            if res[path]["launches"] < need:
+                fails.append(f"{label}: no 2a launch on {path}")
+            launches.append(res[path]["launches"])
+        stats["13b"][f"rank{r}"] = {
+            "lm_iterations_per_s":
+            res["lm"][timed_case]["lm_iterations_per_s"], "gaps": gap,
+            "collective_ms": res["lm"]["collective_ms"],
+            "graph_bit_equal": equal, "rematch_bit_equal": s_equal,
+            **{f"{p}_seconds": res[p]["seconds"]
+               for p in ("matcher", "graph", "slam", "cli")},
+            **{f"{p}_launches": res[p]["launches"]
+               for p in ("matcher", "graph", "slam", "cli")}}
+    scenes = ranks[0]["cli"]["centers"]
+    if not scenes or any(res["cli"]["centers"] for res in ranks[1:]):
+        fails.append("13b cli sfm: rank 0 alone reconstructs")
+    best = max(scenes, key=len) if scenes else {}
+    reg = sorted(best)
+    ate = synth.ate_vs_gt(np.stack([best[i] for i in reg]),
+                          ref["sfm_centers"][reg]) if reg else float("inf")
+    g = ranks[0]["graph"]
+    print(f"  13b match graph {web_views} views, {len(ref['graph'])} "
+          f"verified pairs at batch_pairs {batch_pairs} "
+          f"({g['seconds']:.3f} s); street re-match "
+          f"{street_n} keyframes: {ref['slam']['stats']} on one rank, "
+          f"median UTM error {street_err:.4f} m "
+          f"({ranks[0]['slam']['seconds']:.3f} s); cli sfm "
+          f"{len(reg)}/{sfm_views} registered, ATE {ate:.5f} "
+          f"({ranks[0]['cli']['seconds']:.3f} s)", flush=True)
+    if len(reg) != sfm_views or not ate < 0.05:
+        fails.append(f"13b cli sfm: {len(reg)}/{sfm_views}, ATE {ate}")
+    if fails:
+        raise AssertionError("phase 13: " + "; ".join(fails))
+    stats["13b"].update(street_median_utm_err_m=street_err, cli_ate=ate,
+                        graph_pairs=len(ref["graph"]),
+                        seconds=w2_s)
+    return {"knn2": sum(launches)}, stats
+
+
 def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2745,11 +3407,14 @@ def main(argv=None):
     with phase("12 auxiliary ops"):
         aux_launches, aux_stats = aux_phase(card)
         check_launches(aux_launches, "the auxiliary ops")
+    with phase("13 multi-GPU: world 1 through NCCL, 2 gloo ranks on the card"):
+        mesh_launches, mesh_stats = mesh_phase(card)
+        check_launches(mesh_launches, "the multi-GPU path")
     # a kernel's launches: the sum of its counts over the paths' timed runs
     for path_launches in (exif_launches, web_launches, dense_launches,
                           volume_launches, tput_launches, aerial_launches,
                           big_launches, bow_launches, street_launches,
-                          aux_launches):
+                          aux_launches, mesh_launches):
         for k, n in path_launches.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
@@ -2785,7 +3450,7 @@ def main(argv=None):
                        if k != "stages"},
             "street_rematch": {k: v for k, v in rematch_stats.items()
                                if k != "stages"},
-            "aux": aux_stats}), flush=True)
+            "aux": aux_stats, "mesh": mesh_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,17 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
   in the PCG path.  Their Jacobians come from ``torch.func.jacfwd``.  A
   solve whose prior weights are all zero skips them (one host check per
   solve).
+* Track sharding (parallel/sharded_ba): the functions take an optional
+  `reduce`, the sum over the ranks of a track-sharded problem (None: the
+  identity, and the single-device path exactly as without it).  The sums
+  go where the JAX package puts its psums: the track partials of the
+  reduced system (S and rhs in the dense path; rhs and the block-Jacobi
+  blocks once a solve, and the (D,) track matvec once a CG iteration, in
+  the PCG path) before the prior terms and the damping are added, and the
+  robust track cost before the prior costs are added.  Everything after a
+  sum (the camera solve, the CG vectors, lambda, the accept test and the
+  CG poll) is replicated and read from reduced values only, so every rank
+  takes the same branch.
 """
 from __future__ import annotations
 
@@ -182,9 +193,23 @@ def gps_triple_residuals(problem: BAProblem):
                             problem.gps_triple_weight)
 
 
-def problem_cost(problem: BAProblem, huber_delta: float):
+def _reduce_cat(reduce, *tensors):
+    """The sum over the ranks of several tensors in one collective."""
+    flat = reduce(torch.cat([t.reshape(-1) for t in tensors]))
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].reshape(t.shape))
+        off += t.numel()
+    return out
+
+
+def problem_cost(problem: BAProblem, huber_delta: float, reduce=None):
+    """Robust reprojection cost (summed over the ranks by `reduce`) plus the
+    camera-indexed prior costs, added once after the sum."""
     reproj = robust_cost(compute_residuals(problem), problem.track_mask,
                          huber_delta)
+    if reduce is not None:
+        reproj = reduce(reproj)
     rg = gps_residuals(problem)
     rp = pose_prior_residuals(problem)
     rt = gps_triple_residuals(problem)
@@ -481,7 +506,7 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
 
 
 def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
-              tol_rel=None, prior_blocks=None):
+              tol_rel=None, prior_blocks=None, reduce=None):
     """Block-Jacobi PCG on the damped, freeze-masked reduced system.
 
     The matvec applies S = Hcc - E Hpp^-1 E^T track by track, plus the
@@ -496,6 +521,8 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
     flag every CG_POLL iterations, so the result equals a per-iteration
     check without a host sync per iteration.  A preconditioner block that
     fails its Cholesky yields a NaN step, which the LM loop rejects.
+    `terms` and `rhs` are reduced already; `reduce` sums the track part
+    of each matvec.
     """
     C, M = problem.n_cameras, problem.n_models
     dtype, dev = rhs.dtype, rhs.device
@@ -538,6 +565,8 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
         # into model bins
         Sx = torch.cat([zc[:, :6].reshape(-1),
                         _bin_sum(zc[:, 6:], cam_model, M).reshape(-1)])
+        if reduce is not None:
+            Sx = reduce(Sx)
         if prior_blocks is not None:
             xp = xm[:6 * C].reshape(C, 6)
             Sxp = torch.einsum("cij,cj->ci", Hg, xp)
@@ -597,16 +626,19 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
 
 
 def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
-                           tol_rel=None, priors: bool = True):
+                           tol_rel=None, priors: bool = True, reduce=None):
     C, M = problem.n_cameras, problem.n_models
     terms, rhs, aux = _track_terms(problem, lam, cfg)
+    if reduce is not None:
+        rhs, terms["blk_pose"], terms["blk_intr"] = _reduce_cat(
+            reduce, rhs, terms["blk_pose"], terms["blk_intr"])
     prior_blocks = None
     if priors:
         Hg, Ht, rhs_extra = _gps_prior_blocks(problem)
         prior_blocks = (Hg, Ht)
         rhs = rhs + rhs_extra
     d_cam = _cg_solve(problem, terms, rhs, lam, cfg, tol_rel=tol_rel,
-                      prior_blocks=prior_blocks)
+                      prior_blocks=prior_blocks, reduce=reduce)
     d_pt = backsub_points(aux, d_cam, problem)
     d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
     d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
@@ -614,14 +646,16 @@ def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
 
 
 def _assemble_and_solve(problem: BAProblem, lam, cfg: LMConfig,
-                        tol_rel=None, priors: bool = True):
+                        tol_rel=None, priors: bool = True, reduce=None):
     """One LM step; `priors` False skips the prior terms (all weights
-    zero)."""
+    zero); `reduce` sums the track partials over the ranks."""
     if cfg.cg_iterations > 0:
         return _assemble_and_solve_cg(problem, lam, cfg, tol_rel=tol_rel,
-                                      priors=priors)
+                                      priors=priors, reduce=reduce)
     C, M = problem.n_cameras, problem.n_models
     S, rhs, aux = partial_camera_system(problem, lam, cfg)
+    if reduce is not None:
+        S, rhs = _reduce_cat(reduce, S, rhs)
     d_cam = solve_reduced(S, rhs, problem, lam, cfg, priors=priors)
     d_pt = backsub_points(aux, d_cam, problem)
     d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
@@ -629,13 +663,15 @@ def _assemble_and_solve(problem: BAProblem, lam, cfg: LMConfig,
     return d_pose, d_intr, d_pt
 
 
-def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig()):
+def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig(), reduce=None):
     """Run LM to convergence or cfg.max_iterations.
 
     Returns (problem, info) with initial_cost, final_cost, iterations,
-    lambda, converged and rms_px (host numbers).
+    lambda, converged and rms_px (host numbers).  With `reduce` (the sum
+    over the ranks) `problem` is this rank's block of tracks, and the
+    numbers are the whole problem's.
     """
-    cost = float(problem_cost(problem, cfg.huber_delta))
+    cost = float(problem_cost(problem, cfg.huber_delta, reduce))
     initial_cost = cost
     lam = float(cfg.init_lambda)
     forcing = cfg.cg_forcing and cfg.cg_iterations > 0
@@ -646,11 +682,11 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig()):
     while it < cfg.max_iterations:
         d_pose, d_intr, d_pt = _assemble_and_solve(
             problem, lam, cfg, tol_rel=eta if forcing else None,
-            priors=priors)
+            priors=priors, reduce=reduce)
         cand = problem._replace(poses=problem.poses + d_pose,
                                 intrs=problem.intrs + d_intr,
                                 points=problem.points + d_pt)
-        new_cost = float(problem_cost(cand, cfg.huber_delta))
+        new_cost = float(problem_cost(cand, cfg.huber_delta, reduce))
         it += 1
         accept = new_cost < cost and math.isfinite(new_cost)
         if accept:
@@ -664,7 +700,8 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig()):
                 break
         else:
             lam = min(lam * cfg.lambda_up, cfg.max_lambda)
-    n_obs = int(problem.n_observations())
+    n_obs = problem.n_observations()
+    n_obs = int(n_obs if reduce is None else reduce(n_obs))
     info = {"initial_cost": initial_cost, "final_cost": cost,
             "iterations": it, "lambda": lam, "converged": converged,
             "rms_px": math.sqrt(2.0 * cost / max(n_obs, 1))}

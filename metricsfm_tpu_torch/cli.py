@@ -20,6 +20,15 @@ cv2, then `sfm` in web mode on them, the reference's test_calib program).
 `--method sgm` runs on a card through the CUDA kernels of ops/sgm_kernel,
 with --device cpu through their plain versions; `--method elas` is plain
 torch on either device (the reference has no kernel for it).
+
+`sfm` also runs under torchrun, one process per card:
+
+  torchrun --nproc_per_node=N -m metricsfm_tpu_torch.cli sfm <image_fold>
+
+Rank 0 extracts the features while the others wait; every rank verifies
+its share of each batch of candidate pairs (parallel/mesh, NCCL with a
+card per rank, gloo on the CPU); rank 0 alone reconstructs and writes.
+`slam` and `dense` stay single-process; `calib` ends in `sfm`.
 """
 from __future__ import annotations
 
@@ -35,8 +44,27 @@ def _device(name: str):
 
 def cmd_sfm(args):
     """Images -> features -> match graph -> incremental SfM -> exports.
-    Returns the reconstructed scenes."""
+    Returns the reconstructed scenes (on ranks other than 0 of a
+    multi-process run, which reconstruct nothing: an empty list)."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import initialize_distributed
+
+    device = _device(args.device)
+    started = not dist.is_initialized()
+    rank = initialize_distributed(device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    try:
+        return _sfm(args, device, rank, world)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sfm(args, device, rank: int, world: int):
     import dataclasses
+
+    import torch.distributed as dist
 
     from .config import PRESETS
     from .io import exports
@@ -45,7 +73,6 @@ def cmd_sfm(args):
     from .models.match_graph import build_match_graph
     from .utils.tracing import GLOBAL_TRACER, span
 
-    device = _device(args.device)
     cfg = PRESETS[args.mode]()
     # optional overrides (small test scenes / CPU runs); `calib` passes
     # none of them
@@ -62,13 +89,18 @@ def cmd_sfm(args):
                   device=device)
     print(f"{db.n_images} images on {device}")
     with span("sfm/feature_extraction", sync=True):
-        db.feature_extraction(verbose=True)
+        if rank == 0:
+            db.feature_extraction(verbose=True)
+        if world > 1:
+            dist.barrier()
     with span("sfm/match_graph", sync=True):
         matches = build_match_graph(
             db, cfg, verbose=True,
             debug_render_dir=(os.path.join(db.out, "match_renders")
                               if getattr(args, "debug_matches", False)
                               else None))
+    if rank != 0:
+        return []
     feats = {i: db.features(i) for i in range(db.n_images)}
     with span("sfm/reconstruct", sync=True):
         sfm = IncrementalSfM(feats, matches, cfg, device=device)

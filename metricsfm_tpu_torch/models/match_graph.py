@@ -18,6 +18,16 @@ graph/fine_matching_graph.cc):
   counterpart of the reference's OpenMP loop over pairs
   (fine_matching_graph.cc:87).
 * Per-image match shards persist for resume (match_index semantics).
+* Each batch of pairs is split over the ranks of a mesh (parallel/mesh;
+  one process: a mesh of one): each verifies its rows (one 2-NN launch,
+  its share of the batch's RANSAC) and the results are gathered, so every
+  rank holds the whole graph; rank 0 alone writes the shards.  The
+  RANSAC uniforms of the whole batch are drawn on every rank, so the
+  split graph samples as the unsplit one at the same batch size: on the
+  CPU the two are equal.  On the card a rank's rows, run alone at their
+  smaller batch, give the split graph bit for bit, but a few pairs round
+  otherwise than in the whole batch (273 of 276 bit-equal,
+  `chip_smoke.py` phase 13).
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import torch
 from ..config import GraphOptions
 from ..io import store as fstore
 from ..ops import epipolar, matching, ransac
+from ..parallel.mesh import Mesh, make_global_mesh, owned_range
 from ..utils import utm
 from ..utils.device import resolve as resolve_device
 from .incremental import PairMatches
@@ -121,12 +132,15 @@ def check_pairs(pairs, n: int):
                              f"0 <= i < j < {n}")
 
 
-def verify_pairs(opts: GraphOptions, desc, xy, mask, ii, jj, generator):
+def verify_pairs(opts: GraphOptions, desc, xy, mask, ii, jj, generator,
+                 draw_rows=None):
     """The per-pair fine-matching + verification chain for a pair batch
     (ref fine_matching_graph.cc:104-147), all pairs at once.
 
     desc (M, N, D) bf16, xy (M, N, 2), mask (M, N): the device store;
-    ii, jj (B,) int32 store rows of each pair.
+    ii, jj (B,) int32 store rows of each pair; draw_rows: the RANSAC's
+    whole-batch draw when the pairs are one rank's rows of a split batch
+    (ransac.fundamental_ransac).
     Returns (keep (B, N) bool, idx2 (B, N), ok (B,)).
     """
     d1_sq, d2_sq, idx2 = matching.knn2_gather(desc, mask, ii, jj)
@@ -137,7 +151,8 @@ def verify_pairs(opts: GraphOptions, desc, xy, mask, ii, jj, generator):
     p2g = xy[jjl[:, None], idx2.long()]                    # (B, N, 2)
     fr = ransac.fundamental_ransac(p1, p2g, generator, mask=res["good"],
                                    th_px=opts.epipolar_px,
-                                   min_inliers=opts.geoverify_min_inliers)
+                                   min_inliers=opts.geoverify_min_inliers,
+                                   draw_rows=draw_rows)
     d = epipolar.epipolar_distance(fr["F"], p1, p2g)
     keep = res["all"] & (d < opts.epipolar_px)
     # fixed per-pair match budget (GraphOptions.max_matches_per_pair):
@@ -172,15 +187,46 @@ def descriptor_store(features, imgs, device):
             torch.from_numpy(xy).to(device), torch.from_numpy(mask).to(device))
 
 
+def split_batch(mesh, chunk_pairs):
+    """One rank's share of a batch of pairs split over `mesh`: the batch
+    filled up to a multiple of the mesh size with copies of its last pair,
+    this rank's contiguous rows of it, and their RANSAC draw_rows (the
+    whole batch's uniforms; a copy reuses its pair's)."""
+    nb = len(chunk_pairs)
+    fill = chunk_pairs + [chunk_pairs[-1]] * ((-nb) % mesh.size)
+    lo, hi = mesh.rows(len(fill))
+    rows = torch.clamp(torch.arange(lo, hi), max=nb - 1).to(mesh.device)
+    return fill[lo:hi], (nb, rows)
+
+
+def gather_rows(mesh, *tensors):
+    """all_gather_rows of several (B, ...) tensors in one collective (each
+    flattened to int32 columns; bool and int32 tensors only)."""
+    cols = [t.reshape(t.shape[0], -1).to(torch.int32) for t in tensors]
+    flat = mesh.all_gather_rows(torch.cat(cols, dim=1))
+    out, off = [], 0
+    for t, c in zip(tensors, cols):
+        v = flat[:, off:off + c.shape[1]].reshape(-1, *t.shape[1:])
+        out.append(v.to(t.dtype))
+        off += c.shape[1]
+    return out
+
+
 class MatchGraphBuilder:
-    """Build the verified match graph over candidate pairs (batched)."""
+    """Build the verified match graph over candidate pairs (batched).
+
+    Every batch is split over the ranks of `mesh` (parallel/mesh.Mesh;
+    default: the one process on `device`), on the mesh's device (`device`
+    is then unused); every rank must call `build` with the same pairs."""
 
     def __init__(self, options: GraphOptions, out_fold: Optional[str] = None,
-                 seed: int = 0, batch_pairs: int = 32, device="cuda"):
+                 seed: int = 0, batch_pairs: int = 32, device="cuda",
+                 mesh=None):
         self.opts = options
         self.out = out_fold
         self.batch_pairs = batch_pairs
-        self.device = resolve_device(device)
+        self.mesh = mesh or Mesh(device=resolve_device(device))
+        self.device = self.mesh.device
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 
@@ -230,16 +276,21 @@ class MatchGraphBuilder:
 
         owner=(process_id, process_count): this process matches only the
         pairs whose FIRST image falls in its contiguous image shard.
+
+        A batch of `batch_pairs` rounded up to a multiple of the mesh
+        size is split over the mesh's ranks; every rank returns the whole
+        graph, and only rank 0 writes the shards.
         """
         # pair indices are checked here, on the host: a stray index would
         # trap the 2-NN kernel and lose the process's CUDA context
         check_pairs(pairs, len(features))
         if owner is not None:
-            from ..parallel.mesh import owned_range
             n_imgs = 1 + max((max(i, j) for i, j in pairs), default=0)
             lo, hi = owned_range(n_imgs, *owner)
             pairs = [(i, j) for (i, j) in pairs if lo <= i < hi]
 
+        mesh = self.mesh
+        writer = self.out is not None and mesh.rank == 0
         out: Dict[Tuple[int, int], PairMatches] = {}
         todo: List[Tuple[int, int]] = []
         # per-image match shards ({i}_match like the reference,
@@ -274,16 +325,19 @@ class MatchGraphBuilder:
             row_of = {im: r for r, im in enumerate(imgs)}
             desc_all, xy_all, mask_all = descriptor_store(features, imgs,
                                                           self.device)
-            B = self.batch_pairs
+            B = -(-self.batch_pairs // mesh.size) * mesh.size
             n_batches = -(-len(todo) // B)
             for bi in range(n_batches):
                 chunk_pairs = todo[bi * B:(bi + 1) * B]
-                ii = torch.tensor([row_of[i] for i, _ in chunk_pairs],
+                mine, draw_rows = split_batch(mesh, chunk_pairs)
+                ii = torch.tensor([row_of[i] for i, _ in mine],
                                   dtype=torch.int32).to(self.device)
-                jj = torch.tensor([row_of[j] for _, j in chunk_pairs],
+                jj = torch.tensor([row_of[j] for _, j in mine],
                                   dtype=torch.int32).to(self.device)
                 keep, idx2, ok = verify_pairs(self.opts, desc_all, xy_all,
-                                              mask_all, ii, jj, self.gen)
+                                              mask_all, ii, jj, self.gen,
+                                              draw_rows)
+                keep, idx2, ok = gather_rows(mesh, keep, idx2, ok)
                 keep, idx2, ok = (keep.cpu().numpy(), idx2.cpu().numpy(),
                                   ok.cpu().numpy())
                 for b, (i, j) in enumerate(chunk_pairs):
@@ -311,12 +365,14 @@ class MatchGraphBuilder:
                                         merged[j2] = old["pairs"].get(
                                             j2, (np.empty(0, np.int64),
                                                  np.empty(0, np.int64)))
-                            fstore.write_image_matches(self.out, i, merged)
+                            if writer:
+                                fstore.write_image_matches(self.out, i,
+                                                           merged)
                 if verbose:
                     print(f"matching batch {bi + 1}/{n_batches} "
                           f"({min((bi + 1) * B, len(todo))}/{len(todo)} pairs)")
 
-        if self.out is not None:
+        if writer:
             fstore.write_match_graph(
                 self.out, {k: len(v.kp_i) for k, v in out.items()})
         return out
@@ -370,10 +426,16 @@ def render_pair_matches(database, matches, render_dir: str,
 
 
 def build_match_graph(database, config, verbose: bool = False, device=None,
-                      priori_utm=None, debug_render_dir=None):
+                      priori_utm=None, debug_render_dir=None, mesh=None):
     """End-to-end graph build (ref Graph::BuildGraph, graph.cc:52-70):
     candidate pairs, then batched fine matching on `device` (default: the
     database's).  Returns {(i, j): PairMatches}.
+
+    mesh: the ranks that split the pair batches (MatchGraphBuilder); by
+    default every rank of the process group when one with more than one
+    rank is up (the JAX package's mesh over every visible device).  The
+    candidates are then selected on rank 0 alone (the word stage writes
+    its stores) and sent to the others.
 
     priori_utm: optional (n, 2) easting/northing for 'priori' candidate
     selection when positions come from a pose-prior file rather than image
@@ -382,9 +444,32 @@ def build_match_graph(database, config, verbose: bool = False, device=None,
     debug_render_dir: when set, per-pair match visualizations are written
     there (render_pair_matches).
     """
+    import torch.distributed as dist
+
     opts = config.graph
     n = database.n_images
     device = device or database.device
+    if mesh is None:
+        mesh = make_global_mesh() if dist.is_initialized() and \
+            dist.get_world_size() > 1 else Mesh(device=resolve_device(device))
+    lead = mesh.rank == 0
+    pairs = mesh.broadcast_object(
+        _candidates(database, opts, device, priori_utm, verbose)
+        if lead else None)
+    if verbose:
+        print(f"match graph: {len(pairs)} candidate pairs for {n} images")
+    builder = MatchGraphBuilder(opts, out_fold=database.out, device=device,
+                                mesh=mesh)
+    feats = {i: database.features(i) for i in range(n)}
+    out = builder.build(feats, pairs, verbose=verbose)
+    if debug_render_dir is not None and lead:
+        render_pair_matches(database, out, debug_render_dir, features=feats)
+    return out
+
+
+def _candidates(database, opts: GraphOptions, device, priori_utm, verbose):
+    """The candidate pairs of build_match_graph's strategy."""
+    n = database.n_images
     if opts.matching_type == "all" or n <= 12:
         pairs = candidates_all(n)
     elif opts.matching_type == "priori":
@@ -400,11 +485,4 @@ def build_match_graph(database, config, verbose: bool = False, device=None,
         pairs = candidates_gps(coords, opts.knn)
     else:
         _, pairs = candidates_feature(database, opts, device, verbose)
-    if verbose:
-        print(f"match graph: {len(pairs)} candidate pairs for {n} images")
-    builder = MatchGraphBuilder(opts, out_fold=database.out, device=device)
-    feats = {i: database.features(i) for i in range(n)}
-    out = builder.build(feats, pairs, verbose=verbose)
-    if debug_render_dir is not None:
-        render_pair_matches(database, out, debug_render_dir, features=feats)
-    return out
+    return pairs

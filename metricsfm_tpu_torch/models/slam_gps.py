@@ -26,7 +26,11 @@ ops/matching.knn2_gather) per batch of 32 pairs over a bf16 descriptor
 store, then the ratio, prior-F and prior-H gates and one batched F-RANSAC.
 The window priors run one batched F-RANSAC and one batched H-RANSAC per
 group of pairs of one padded length, where the JAX package dispatches
-each pair on its own.
+each pair on its own.  The re-match batches are split over the ranks of
+a mesh (parallel/mesh) as MatchGraphBuilder splits its batches
+(each rank one 2-NN launch on its rows, the whole batch's RANSAC draws on
+every rank, the results gathered); the rest of the run is replicated, and
+rank 0 alone writes.
 """
 from __future__ import annotations
 
@@ -42,11 +46,12 @@ from ..ba import LMConfig, solve_lm
 from ..config import PipelineConfig
 from ..io import exports
 from ..ops import np_geom, umeyama
+from ..parallel.mesh import Mesh
 from ..utils import utm as utm_util
 from ..utils.device import resolve as resolve_device
 from ..utils.tracing import span
 from .incremental import cg_plan
-from .match_graph import descriptor_store
+from .match_graph import descriptor_store, gather_rows, split_batch
 from .scene import CameraModel, Scene, bucket
 
 REMATCH_BATCH = 32          # pairs per 2-NN launch
@@ -167,7 +172,7 @@ def turn_weights(gps: np.ndarray, window: int = 20, max_deg: float = 80.0
 
 
 def rematch_pairs(desc, xy, mask, ii, jj, F, H, generator, ratio: float,
-                  th_epi: float, th_dist: float):
+                  th_epi: float, th_dist: float, draw_rows=None):
     """The prior-gated re-match chain for a batch of keyframe pairs (ref
     slam_gps.cc:424-553), all pairs at once.
 
@@ -176,7 +181,9 @@ def rematch_pairs(desc, xy, mask, ii, jj, F, H, generator, ratio: float,
     pairs' priors.  The 2-NN runs from image j's keypoints (queries) into
     image i (database), ratio `ratio`; a match survives the epipolar gate
     against F (<= th_epi), the prior-H displacement gate (<= 40 th_dist)
-    and a batched F-RANSAC over the gated set.
+    and a batched F-RANSAC over the gated set (draw_rows: its whole-batch
+    draw when the pairs are one rank's rows of a split batch,
+    ransac.fundamental_ransac).
     Returns (keep (B, N) over image j's keypoints, idx_i (B, N) their best
     keypoint of image i, ok (B,)).
     """
@@ -197,7 +204,8 @@ def rematch_pairs(desc, xy, mask, ii, jj, F, H, generator, ratio: float,
     disp = torch.linalg.norm(ph[..., :2] / w - p2, dim=-1)
     keep = keep & (disp <= 40 * th_dist)
     # final F-RANSAC geo-verification over the gated set
-    fr = ransac.fundamental_ransac(p1, p2, generator, mask=keep)
+    fr = ransac.fundamental_ransac(p1, p2, generator, mask=keep,
+                                   draw_rows=draw_rows)
     keep = keep & fr["inlier_mask"]
     ok = fr["ok"] & (torch.sum(keep, dim=-1) >= 8)
     return keep & ok[:, None], idx_i, ok
@@ -208,15 +216,22 @@ class SLAMGPS:
 
     `device` defaults to the card and raises without one; its random draws
     (the RANSACs of the re-match path) come from a torch.Generator seeded
-    with `seed`.  `stats` counts the last run's prior pairs, verified
-    re-match pairs and retriangulated tracks; the GPS BA's solve is the
-    span slam/ba_solve/pcg (from sfm.th_cg_cameras cameras) or
-    slam/ba_solve/dense.
+    with `seed`.  The re-match batches are split over the ranks of `mesh`
+    (parallel/mesh.Mesh; default: the one process on `device`), on the
+    mesh's device (`device` is then unused); every rank runs the whole
+    pipeline on the same inputs, and rank 0 alone writes (the keyframe
+    feature store, accuracy.txt and the exports).  `stats` counts the last
+    run's prior pairs, verified re-match pairs and retriangulated tracks;
+    the GPS BA's solve is the span slam/ba_solve/pcg (from
+    sfm.th_cg_cameras cameras) or slam/ba_solve/dense.
     """
 
-    def __init__(self, config: PipelineConfig, seed: int = 0, device="cuda"):
+    def __init__(self, config: PipelineConfig, seed: int = 0, device="cuda",
+                 mesh=None):
         self.cfg = config
-        self.device = resolve_device(device)
+        self.mesh = mesh or Mesh(device=resolve_device(device))
+        self.lead = self.mesh.rank == 0
+        self.device = self.mesh.device
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.gps_offset = np.zeros(3)
@@ -269,8 +284,9 @@ class SLAMGPS:
             print("GPS BA:", info)
         with span("slam/accuracy_cull", sync=True):
             self._accuracy_cull(scene, fold)
-        with span("slam/exports"):
-            self._exports(fold, scene, slam)
+        if self.lead:
+            with span("slam/exports"):
+                self._exports(fold, scene, slam)
         return scene
 
     # -- keyframe features + windowed matching + re-triangulation ---------
@@ -291,7 +307,13 @@ class SLAMGPS:
                       device=self.device)
         if db.n_images == 0:
             return None
-        db.feature_extraction(verbose=verbose)
+        # rank 0 extracts and writes the store; the others wait, then
+        # read it
+        if self.lead:
+            db.feature_extraction(verbose=verbose)
+        self.mesh.barrier()
+        if not self.lead:
+            db.feature_extraction(verbose=verbose)
         # map cam rows to database rows by keyframe name (zero-padded id)
         by_name = {os.path.basename(p).rsplit(".", 1)[0]: k
                    for k, p in enumerate(db.image_paths)}
@@ -383,7 +405,9 @@ class SLAMGPS:
         The descriptor store goes to the device once (bf16, N padded to
         128); each batch of REMATCH_BATCH prior pairs is one rematch_pairs
         call (one 2-NN kernel launch) and one copy back.  The last batch is
-        short: only real pairs are matched."""
+        short: only real pairs are matched.  Each batch (of REMATCH_BATCH
+        rounded up to a multiple of the mesh size) is split over the mesh's
+        ranks and gathered back (match_graph.split_batch)."""
         priors = self.window_match_priors(scene, verbose)
         self.stats["prior_pairs"] = len(priors)
         if not priors:
@@ -403,16 +427,20 @@ class SLAMGPS:
         Hs = torch.tensor(np.stack([priors[p][1] for p in pair_list]),
                           dtype=torch.float32, device=dev)
         out: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]] = {}
-        for b0 in range(0, len(pair_list), REMATCH_BATCH):
-            chunk_pairs = pair_list[b0:b0 + REMATCH_BATCH]
-            ii = torch.tensor([row_of[i] for i, _ in chunk_pairs],
+        mesh = self.mesh
+        B = -(-REMATCH_BATCH // mesh.size) * mesh.size
+        for b0 in range(0, len(pair_list), B):
+            chunk_pairs = pair_list[b0:b0 + B]
+            mine, draw_rows = split_batch(mesh, chunk_pairs)
+            sl = b0 + draw_rows[1]
+            ii = torch.tensor([row_of[i] for i, _ in mine],
                               dtype=torch.int32).to(dev)
-            jj = torch.tensor([row_of[j] for _, j in chunk_pairs],
+            jj = torch.tensor([row_of[j] for _, j in mine],
                               dtype=torch.int32).to(dev)
-            sl = slice(b0, b0 + len(chunk_pairs))
             keep, idx_i, ok = rematch_pairs(
                 desc, xy, mask, ii, jj, Fs[sl], Hs[sl], self.gen, ratio,
-                th_epi, th_dist)
+                th_epi, th_dist, draw_rows)
+            keep, idx_i, ok = gather_rows(mesh, keep, idx_i, ok)
             keep, idx_i, ok = (keep.cpu().numpy(), idx_i.cpu().numpy(),
                                ok.cpu().numpy())
             for b, (i, j) in enumerate(chunk_pairs):
@@ -662,8 +690,9 @@ class SLAMGPS:
         from .accuracy import assess
 
         st = assess(scene, self.kp_xy, max_views=16, device=self.device)
-        exports.write_accuracy(os.path.join(fold, "accuracy.txt"),
-                               st["avg_err"], st["mse"], st["n_obs"])
+        if self.lead:
+            exports.write_accuracy(os.path.join(fold, "accuracy.txt"),
+                                   st["avg_err"], st["mse"], st["n_obs"])
         rows = np.nonzero(st["per_track_rmse"]
                           > self.cfg.sfm.th_mse_outliers * 3)[0]
         for row in rows:

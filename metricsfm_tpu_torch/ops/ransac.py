@@ -18,14 +18,26 @@ from . import epipolar
 
 
 def _sample_indices(generator: Optional[torch.Generator], mask,
-                    num_hypotheses: int, sample_size: int):
+                    num_hypotheses: int, sample_size: int, draw_rows=None):
     """(..., H, S) index samples drawn without replacement from the valid
     entries of mask (..., N): Gumbel top-k, an exact uniform sample over the
     masked support (with fewer valid entries than S, masked ones fill in,
-    as in the JAX package)."""
-    shape = mask.shape[:-1] + (num_hypotheses, mask.shape[-1])
-    u = torch.rand(shape, generator=generator, device=mask.device,
-                   dtype=torch.float32)
+    as in the JAX package).
+
+    draw_rows=(n, rows), for a (B, N) mask that is one rank's rows of a
+    batch split over a mesh: the uniforms of the whole batch of n pairs
+    are drawn, in the shape an unsplit call draws them, and rows `rows`
+    (B,) of them are kept, so the split batch samples exactly as the
+    unsplit one."""
+    if draw_rows is None:
+        shape = mask.shape[:-1] + (num_hypotheses, mask.shape[-1])
+        u = torch.rand(shape, generator=generator, device=mask.device,
+                       dtype=torch.float32)
+    else:
+        n, rows = draw_rows
+        u = torch.rand((n, num_hypotheses, mask.shape[-1]),
+                       generator=generator, device=mask.device,
+                       dtype=torch.float32)[rows]
     g = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
     logits = torch.where(mask, 0.0, -1e9)[..., None, :]
     return torch.topk(g + logits, sample_size, dim=-1).indices
@@ -40,7 +52,7 @@ def _gather_rows(pts, idx):
 
 
 def _consensus(pts1, pts2, fit, dist, th, generator, mask, num_hypotheses,
-               min_inliers, refit_rounds, sample_idx):
+               min_inliers, refit_rounds, sample_idx, draw_rows=None):
     """The RANSAC harness both two-view models share: 8-row hypotheses
     fit non-exactly, the winner by inlier count, then `refit_rounds`
     weighted exact refits, each kept only if it keeps at least half the
@@ -48,7 +60,7 @@ def _consensus(pts1, pts2, fit, dist, th, generator, mask, num_hypotheses,
     m = torch.ones(pts1.shape[:-1], dtype=torch.bool, device=pts1.device) \
         if mask is None else mask.bool()
     idx = sample_idx if sample_idx is not None else \
-        _sample_indices(generator, m, num_hypotheses, 8)
+        _sample_indices(generator, m, num_hypotheses, 8, draw_rows)
     idx = idx.long()
 
     models = fit(_gather_rows(pts1, idx), _gather_rows(pts2, idx),
@@ -76,19 +88,21 @@ def _consensus(pts1, pts2, fit, dist, th, generator, mask, num_hypotheses,
 def fundamental_ransac(pts1, pts2, generator=None, mask=None,
                        num_hypotheses: int = 256, th_px: float = 3.0,
                        min_inliers: int = 30, refit_rounds: int = 2,
-                       sample_idx=None):
+                       sample_idx=None, draw_rows=None):
     """Batched 8-point F-RANSAC with epipolar-distance scoring.
 
     pts1, pts2: (..., N, 2) centered-pixel correspondences (masked).
     mask: (..., N) valid rows.  th_px/min_inliers mirror geo_verification.cc.
     sample_idx: optional (..., H, 8) injected minimal samples (replaces the
       draw from `generator`, so tests can feed both packages one sample set).
+    draw_rows: (n, rows) for one rank's rows of a batch split over a mesh
+      (see _sample_indices).
     Returns dict: F (..., 3, 3), inlier_mask (..., N), n_inliers, ok.
     """
     F, inl, n, ok = _consensus(
         pts1, pts2, epipolar.fundamental_8pt, epipolar.epipolar_distance,
         th_px, generator, mask, num_hypotheses, min_inliers, refit_rounds,
-        sample_idx)
+        sample_idx, draw_rows)
     return {"F": F, "inlier_mask": inl, "n_inliers": n, "ok": ok}
 
 

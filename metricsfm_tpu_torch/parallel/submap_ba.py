@@ -14,11 +14,14 @@ by its own LM run (ba/lm.solve_lm) one after another: the same semantics
 as the vmapped batch, where every submap keeps its own lambda and its own
 accept / reject decisions.  Submaps are not merged into one block-diagonal
 problem, which would share one lambda.  A submap's `iterations` is the sum
-over its whole solve.
+over its whole solve.  With a mesh of ranks the submaps are dealt to the
+ranks in contiguous blocks (no collective inside a solve), and the solved
+cameras, points and numbers are summed into every rank, so every rank
+runs the same pose-graph merge.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +30,7 @@ from torch.func import jacfwd
 from ..ba import problem as ba_problem
 from ..ba.lm import LMConfig, solve_lm
 from ..ops import lie, np_geom
+from .mesh import Mesh, owned_range
 
 
 # ---------------------------------------------------------------- partition
@@ -55,7 +59,7 @@ def partition_images(imgs: Sequence[int], max_cams: int = 64,
 # ------------------------------------------------------------- problems
 def build_submap_problems(scene, kp_xy: Dict[int, np.ndarray],
                           parts: List[List[int]], max_views: int = 8,
-                          gauge_weight: float = 1.0, device="cpu",
+                          gauge_weight: float = 1.0, *, device,
                           dtype=torch.float32):
     """One BAProblem per submap, on `device`.
 
@@ -159,21 +163,53 @@ def build_submap_problems(scene, kp_xy: Dict[int, np.ndarray],
     return problems, infos
 
 
-def solve_submaps(problems, cfg: LMConfig = LMConfig()):
-    """Solve every submap by its own LM run, one after another.
+INFO_KEYS = ("initial_cost", "final_cost", "iterations", "lambda",
+             "converged", "rms_px")
+
+
+def solve_submaps(problems, cfg: LMConfig = LMConfig(),
+                  mesh: Optional[Mesh] = None, axis_name: str = "data"):
+    """Solve every submap by its own LM run, one after another.  Each rank
+    of `mesh` (default: the one process) solves its contiguous block of
+    submaps, and the results are summed into every rank (one all-reduce of
+    the cameras and points, one of the numbers).
 
     Returns (solved problems, info): info holds one entry per submap of
     solve_lm's numbers (initial_cost, final_cost, iterations, lambda,
     converged, rms_px); `iterations` counts every LM iteration of that
     submap's solve.
     """
-    solved, infos = [], []
-    for prob in problems:
-        out, info = solve_lm(prob, cfg)
-        solved.append(out)
-        infos.append(info)
-    info = {k: np.asarray([i[k] for i in infos]) for k in infos[0]} \
-        if infos else {}
+    if not problems:
+        return [], {}
+    ref = problems[0].points
+    mesh = mesh or Mesh(device=ref.device)
+    S = len(problems)
+    lo, hi = owned_range(S, mesh.rank, mesh.shape[axis_name])
+    fields = ("poses", "intrs", "points")
+    sizes = [sum(getattr(p, f).numel() for f in fields) for p in problems]
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    flat = torch.zeros(int(offs[-1]), dtype=ref.dtype, device=ref.device)
+    nums = torch.zeros((S, len(INFO_KEYS)), dtype=torch.float64,
+                       device=ref.device)
+    for s in range(lo, hi):
+        out, info = solve_lm(problems[s], cfg)
+        flat[offs[s]:offs[s + 1]] = torch.cat(
+            [getattr(out, f).reshape(-1) for f in fields])
+        nums[s] = torch.tensor([float(info[k]) for k in INFO_KEYS],
+                               dtype=torch.float64)
+    flat = mesh.psum(flat)
+    nums = mesh.psum(nums).cpu().numpy()
+    solved = []
+    for s, prob in enumerate(problems):
+        parts, o = {}, int(offs[s])
+        for f in fields:
+            t = getattr(prob, f)
+            parts[f] = flat[o:o + t.numel()].reshape(t.shape)
+            o += t.numel()
+        solved.append(prob._replace(**parts))
+    info = {k: nums[:, c] for c, k in enumerate(INFO_KEYS)}
+    info["iterations"] = info["iterations"].astype(np.int64)
+    info["converged"] = info["converged"].astype(bool)
     return solved, info
 
 
@@ -189,7 +225,7 @@ def _apply_sim3(p7, pts):
 def optimize_pose_graph(centers_by_submap: List[np.ndarray],
                         pairs: List[tuple], iters: int = 30,
                         lam: float = 1e-4, rot_weight: float = 1.0,
-                        identity_weight: float = 1e-2, device="cpu"):
+                        identity_weight: float = 1e-2, *, device):
     """Sim(3) pose graph over submaps, on `device`.
 
     centers_by_submap[k]: (Nk, 3) camera centers of submap k (its solved
@@ -271,8 +307,10 @@ def optimize_pose_graph(centers_by_submap: List[np.ndarray],
 def hierarchical_ba(scene, kp_xy: Dict[int, np.ndarray],
                     max_cams: int = 64, overlap: int = 8,
                     max_views: int = 8, cfg: LMConfig = LMConfig(),
-                    device="cpu", verbose: bool = False):
-    """Partition -> submap BA -> Sim(3) pose-graph merge, on `device`.
+                    mesh: Optional[Mesh] = None, verbose: bool = False, *,
+                    device):
+    """Partition -> submap BA -> Sim(3) pose-graph merge, on `device`
+    (with a `mesh`, the submap solves dealt to its ranks: solve_submaps).
 
     Mutates `scene` in place (poses + track xyz): each camera is owned by
     the submap where it sits furthest from the window edges, each track by
@@ -286,7 +324,7 @@ def hierarchical_ba(scene, kp_xy: Dict[int, np.ndarray],
         # as the JAX package: submap solves always run the matrix-free PCG
         # camera solve
         cfg = cfg._replace(cg_iterations=50)
-    solved, info = solve_submaps(probs, cfg)
+    solved, info = solve_submaps(probs, cfg, mesh=mesh)
     poses_out = [p.poses.cpu().numpy().astype(np.float64) for p in solved]
     points_out = [p.points.cpu().numpy().astype(np.float64) for p in solved]
 

@@ -29,14 +29,10 @@ NOT_TO_PORT = {
 }
 NOT_TO_PORT_DIRS = ("ops/pallas/",)
 
-# Still to port: ROADMAP item 10, multi-GPU.  Later slices shrink it.
-PENDING = {
-    "parallel/mesh.py": {"initialize_distributed", "make_global_mesh",
-                         "make_mesh", "pad_to_multiple", "shard_tracks"},
-    "parallel/sharded_ba.py": {"make_sharded_lm", "solve_lm_sharded"},
-    "parallel/sharded_matching.py": {"make_sharded_matcher",
-                                     "match_pairs_sharded"},
-}
+# Still to port: nothing (the multi-GPU modules, ROADMAP item 10, were the
+# last).  A name listed here must exist in the JAX package and not in the
+# port.
+PENDING = {}
 
 
 def public_names(path):

@@ -42,7 +42,7 @@ def _run(monkeypatch, out, feats, pairs, stop_after=None):
     batches done) per shard write], result or None)."""
     verified, writes = [], []
 
-    def fake_verify(opts, desc, xy, mask, ii, jj, gen):
+    def fake_verify(opts, desc, xy, mask, ii, jj, gen, draw_rows=None):
         if stop_after is not None and len(verified) // B == stop_after:
             raise _Stop
         # the store's row r holds the image whose keypoints it carries

@@ -45,6 +45,9 @@ MODULES = [
     "metricsfm_tpu_torch.utils.pso",
     "metricsfm_tpu_torch.models.accuracy",
     "metricsfm_tpu_torch.io.store",
+    "metricsfm_tpu_torch.parallel.mesh",
+    "metricsfm_tpu_torch.parallel.sharded_ba",
+    "metricsfm_tpu_torch.parallel.sharded_matching",
 ]
 
 

@@ -70,7 +70,8 @@ def test_build_submap_problems_match_jax(max_views):
     js, ts, kp_xy, _ = _noisy_scenes(0, 16)
     parts = jsub.partition_images(js.registered, 8, 3)
     jp, jinfo = jsub.build_submap_problems(js, kp_xy, parts, max_views)
-    tp, tinfo = tsub.build_submap_problems(ts, kp_xy, parts, max_views)
+    tp, tinfo = tsub.build_submap_problems(ts, kp_xy, parts, max_views,
+                                           device="cpu")
     assert len(tp) == len(parts) == 3
     for s, part in enumerate(parts):
         C, P = len(part), len(tinfo[s]["tracks"])
@@ -107,7 +108,7 @@ def test_solve_submaps_matches_jax_and_sums_iterations():
     js, ts, kp_xy, _ = _noisy_scenes(1, 16)
     parts = jsub.partition_images(js.registered, 8, 3)
     jp, _ = jsub.build_submap_problems(js, kp_xy, parts)
-    tp, _ = tsub.build_submap_problems(ts, kp_xy, parts)
+    tp, _ = tsub.build_submap_problems(ts, kp_xy, parts, device="cpu")
     jout, jinfo = jsub.solve_submaps(
         jp, JLM(max_iterations=6, rtol=0.0, cg_iterations=50))
     cfg = TLM(max_iterations=6, rtol=0.0, cg_iterations=50)
@@ -191,7 +192,7 @@ def test_optimize_pose_graph_matches_jax(seed, rotations):
     if not rotations:
         pairs = [p[:4] for p in pairs]
     Tj = jsub.optimize_pose_graph(cs, pairs)
-    Tt = tsub.optimize_pose_graph(cs, pairs)
+    Tt = tsub.optimize_pose_graph(cs, pairs, device="cpu")
     assert Tt.shape == Tj.shape == (4, 7)
     assert np.abs(Tj[1:]).max() > 1e-2           # the frames really moved
     cj = _pose_graph_cost(Tj, cs, pairs)
@@ -199,7 +200,7 @@ def test_optimize_pose_graph_matches_jax(seed, rotations):
     assert abs(ct / cj - 1.0) < 1e-4, (ct, cj)
     assert ct < 1e-3 * _pose_graph_cost(np.zeros_like(Tt), cs, pairs)
     np.testing.assert_allclose(Tt, Tj, atol=1e-3)
-    assert not tsub.optimize_pose_graph(cs[:1], []).any()
+    assert not tsub.optimize_pose_graph(cs[:1], [], device="cpu").any()
 
 
 def test_hierarchical_ba_matches_jax():
@@ -212,7 +213,8 @@ def test_hierarchical_ba_matches_jax():
     jsub.hierarchical_ba(js, kp_xy, max_cams=8, overlap=3, max_views=8,
                          cfg=JLM(max_iterations=20))
     info = tsub.hierarchical_ba(ts, kp_xy, max_cams=8, overlap=3,
-                                max_views=8, cfg=TLM(max_iterations=20))
+                                max_views=8, cfg=TLM(max_iterations=20),
+                                device="cpu")
     assert len(info["iterations"]) == 3
     after_j = jassess(js, kp_xy)["avg_err"]
     after_t = tassess(ts, kp_xy, device="cpu")["avg_err"]
@@ -267,7 +269,8 @@ def test_has_priors_gates_the_prior_terms():
     _, ts, kp_xy, _ = _noisy_scenes(3, 16)
     from metricsfm_tpu_torch.ba import lm as tlm
     probs, _ = tsub.build_submap_problems(
-        ts, kp_xy, tsub.partition_images(ts.registered, 8, 3))
+        ts, kp_xy, tsub.partition_images(ts.registered, 8, 3),
+        device="cpu")
     assert tlm.has_priors(probs[0])
     off = probs[0]._replace(pose_prior_weight=torch.zeros_like(
         probs[0].pose_prior_weight))

@@ -1,0 +1,56 @@
+"""How far two calls of solve_lm on the card agree, by iteration count.
+
+Phase 12h's problem (synthetic_ba_problem at 1,024 cameras x 131,072
+points, exact observations) and phase 13's copy of it with 0.5 px of
+seeded observation noise (chip_smoke.mesh_ba_problem), each solved twice
+with 12h's LMConfig cut to 1 ... 8 iterations.  On CUDA index_add_ sums
+through atomics in a varying order, so two calls need not agree bit for
+bit.  Prints, for each pair of calls, the gaps of chip_smoke.lm_gaps:
+final cost and rms_px relative, poses raw and modulo the problem's scale
+gauge, and the scale factor between the two.  Needs one NVIDIA card; run
+from the repository root:
+
+    python3 tools/probe_lm_repeat.py
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+
+def main():
+    import torch
+    from metricsfm_tpu_torch.ba.lm import solve_lm
+    from metricsfm_tpu_torch.utils import synth
+
+    print(chip_smoke.gpu_line(), flush=True)
+    cfg = chip_smoke.mesh_lm_config()
+    problems = {
+        "exact": synth.synthetic_ba_problem(1024, 131072, device="cuda"),
+        "noisy": chip_smoke.mesh_ba_problem("cuda", 1024, 131072)}
+    solve_lm(problems["exact"], cfg._replace(max_iterations=1))  # warm-up
+    rows = []
+    for name, prob in problems.items():
+        for n in range(1, cfg.max_iterations + 1):
+            runs = []
+            for _ in range(2):
+                out, info = solve_lm(prob, cfg._replace(max_iterations=n))
+                torch.cuda.synchronize()
+                runs.append({"info": info,
+                             "poses": chip_smoke.poses_of(out)})
+            gap = chip_smoke.lm_gaps(runs[1], runs[0])
+            row = {"problem": name, "iterations": n,
+                   "final_cost": runs[0]["info"]["final_cost"], **gap}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+if __name__ == "__main__":
+    main()
