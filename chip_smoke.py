@@ -6,8 +6,9 @@ Phases, each printing its own line with seconds; the first failure raises
 and the script exits non-zero:
   1. refuse to run without CUDA; print the card's name and power limit;
   2. build every CUDA kernel from ops/csrc with nvcc (one nvcc per source,
-     all started together) and print each kernel's registers, spills,
-     shared memory and any wgmma-serialization warning from the build log;
+     all started together: 2a, 2b, 2c, 2d-2h and segsum) and print each
+     kernel's registers, spills, shared memory and any wgmma-serialization
+     warning from the build log;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, and time both beside the kernel's
      bound: knn2 (2a) at the sfm verify batch (and timed at the aerial
@@ -117,16 +118,17 @@ and the script exits non-zero:
      iterations/s printed);
  13. the multi-GPU path on torch.distributed (`mesh_phase`): 13a at
      world size 1 through NCCL in this process, solve_lm_sharded on phase
-     12h's BA problem with 0.5 px of seeded noise on its observations
-     (`mesh_ba_problem`: without it the 8 iterations stop mid-descent,
-     where solve_lm on the card differs from itself by ~1e-2) against
-     solve_lm (the same iterations, final cost within 1e-4 relative; LM
-     iterations/s of both, solve_lm's spread over two calls and the cost
-     of one all-reduce of the CG matvec printed) and match_pairs_sharded on 32
+     12h's BA problem (exact for 8 and 2 iterations, and with 0.5 px of
+     seeded noise on its observations for 8, `LM_CASES`) against solve_lm
+     (the same iterations; cost, rms_px and poses within 1e-4; LM
+     iterations/s of both, solve_lm against itself over two calls and the
+     cost of one all-reduce of the CG matvec printed) and
+     match_pairs_sharded on 32
      pairs x 4,096 x 128 through 2a (count reset just before, read just
      after) against match_pair (idx2, good and all equal); 13b two spawned
      ranks sharing the card through gloo: the same BA problem and matcher
-     with the same gates, MatchGraphBuilder(mesh=) on 4c's 24 rendered
+     (13b's BA gates by case in `LM_CASES`), MatchGraphBuilder(mesh=) on
+     4c's 24 rendered
      1024x768 views (equal to the unsharded graph at the same
      batch_pairs), SLAMGPS(mesh=).run(rematch=True) on 24 keyframes of
      11b's street at 1280x720 (the same verified pairs, matches and tracks
@@ -134,9 +136,25 @@ and the script exits non-zero:
      phase 4's 8 views (8/8 registered by rank 0, ATE < 0.05); every rank
      prints its backend, its card and its 2a launches, a rank that fails
      or outlives the deadline fails the phase;
- 10. print the paths' numbers, the kernel table (2a-2h, launches summed
-     over the paths, phase 13's ranks included), the card line and the
-     result line.
+ 14. reproducibility (`repro_phase`): (a) the segsum kernel (ops/csrc/
+     segsum.cu, the fixed-order sum in place of the port's atomic float
+     scatters) against its plain version in f64 on BA's, k-means' and the
+     Hough votes' shapes and on skewed, empty, single, masked and wide
+     bins, within 1e-6 of each bin's sum of |values| and bit-equal over 3
+     launches, timed beside index_add_ of the same sums and its bound;
+     (b) solve_lm twice, bit-equal: 12h's problem (phase 13's two
+     reference runs), a 64-camera dense-Schur problem and a problem with
+     GPS triples by dense Schur and by PCG; (c) SIFT of one 4c view, and
+     4c's vocabulary, word bags and candidates, twice: equal; (d) 4c's two
+     runs: poses and points bit-equal; (e) `cli dense` (SGM, D 128, 2c-2f)
+     on the sfm_sure.txt of each 4c run over its 23 consecutive pairs:
+     depth maps bit-equal across the runs, each pair's valid share > 0.3,
+     >= 80 % of the points within one disparity pixel's depth of a
+     rendered plane after Umeyama on the camera centres; `cli dense
+     --method elas` on the first pair, gated alike;
+ 10. print the paths' numbers, the kernel table (2a-2h and segsum,
+     launches summed over the paths, phase 13's ranks' 2a included), the
+     card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
 of each end-to-end path (the aerial one device activity only, no trace).
 A failed build raises with its nvcc log; to keep a whole run's record,
@@ -1338,6 +1356,7 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     import torch
     from metricsfm_tpu_torch import cli
     from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
 
@@ -1352,13 +1371,15 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             matching.knn2_gather.launches = 0
+            segment_sum.launches = 0
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
                                "all", "--no-resize", "--max-kp",
                                str(max_kp), "--device", "cuda"])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = {"knn2": matching.knn2_gather.launches}
+            launches = {"knn2": matching.knn2_gather.launches,
+                        "segsum": segment_sum.launches}
         finally:
             shutil.rmtree(fold, ignore_errors=True)
         if not scenes:
@@ -1386,6 +1407,16 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     return launches, stats
 
 
+def scene_state(scenes):
+    """Every model's registered images, poses (stacked in image order) and
+    good points (in track order), as numpy: what two runs compare."""
+    import numpy as np
+    return [{"registered": list(s.registered),
+             "poses": np.stack([s.poses[i] for i in s.registered]),
+             "points": np.stack([t.xyz for t in s.tracks if not t.is_bad])}
+            for s in scenes]
+
+
 def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
                    arc_step=0.03):
     """4c: `cli sfm` with the user's defaults (web mode, no --matching: BoW
@@ -1393,7 +1424,8 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
     folders: a warm-up with --debug-matches (gate: renders written) and a
     timed run without.  `arc_step` 0.03 rad keeps the 24-view arc on the
     planes (>= 90 % of every view).  Returns the timed run's (launches,
-    stats)."""
+    stats) and both runs' {fold, state: scene_state}, whose folders phase
+    14 reads and removes (they are removed here if a gate fails)."""
     import dataclasses
 
     import numpy as np
@@ -1404,6 +1436,7 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
     from metricsfm_tpu_torch.models.database import Database
     from metricsfm_tpu_torch.models.match_graph import candidates_feature
     from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
 
@@ -1413,21 +1446,25 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
     cfg = PRESETS["web"]()
     db_opts = dataclasses.replace(cfg.database, resize=False,
                                   max_keypoints=max_kp)
-    for run, debug in enumerate((True, False)):
-        fold = tempfile.mkdtemp(prefix="msf_smoke_web_")
-        try:
+    runs = []
+    try:   # a failed run leaves no folder behind
+        for run, debug in enumerate((True, False)):
+            fold = tempfile.mkdtemp(prefix="msf_smoke_web_")
+            runs.append({"fold": fold})
             synth.write_scene_images(fold, gt)
             GLOBAL_TRACER.reset()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             matching.knn2_gather.launches = 0
+            segment_sum.launches = 0
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--no-resize", "--max-kp",
                                str(max_kp), "--device", "cuda"]
                               + (["--debug-matches"] if debug else []))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = {"knn2": matching.knn2_gather.launches}
+            launches = {"knn2": matching.knn2_gather.launches,
+                        "segsum": segment_sum.launches}
             peak = torch.cuda.max_memory_allocated()
             # what the run stored: the vocabulary, the word bags, renders;
             # the candidates before and after the word-seed gate are
@@ -1441,43 +1478,50 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
                 if os.path.isdir(renders) else 0
             cands, kept = candidates_feature(
                 Database(fold, db_opts, device="cuda"), cfg.graph, "cuda")
-        finally:
-            shutil.rmtree(fold, ignore_errors=True)
-        if not scenes:
-            raise AssertionError("web: no model reconstructed")
-        best = max(scenes, key=lambda s: len(s.registered))
-        est = np.stack([np_geom.camera_center(best.poses[i])
-                        for i in best.registered])
-        ate = synth.ate_vs_gt(est, gt["centers"][best.registered])
-        label = "warm-up, --debug-matches" if debug else "timed"
-        print(f"  web run {run} ({label}): vocabulary "
-              f"{voc.n_words if voc is not None else 0} words, "
-              f"{n_word_files} word files; {len(cands)} candidate pairs, "
-              f"{len(kept)} after the word-seed gate; "
-              f"{len(best.registered)}/{n_cams} registered, "
-              f"{best.n_points()} points, ATE {ate:.5f}, {dt:.3f} s = "
-              f"{n_cams / dt:.4f} images/s, peak {peak / 2**20:.1f} MiB, "
-              f"launches {launches}, renders {n_renders}", flush=True)
-        if voc is None or n_word_files != n_cams:
-            raise AssertionError(f"web: vocabulary {voc is not None}, "
-                                 f"{n_word_files}/{n_cams} word files")
-        if not kept or launches["knn2"] < 1:
-            raise AssertionError("web: the feature branch matched nothing")
-        if debug and n_renders < 1:
-            raise AssertionError("web: --debug-matches wrote no render")
-        if len(best.registered) != n_cams:
-            raise AssertionError(f"web: registered {len(best.registered)}/"
-                                 f"{n_cams}")
-        if ate >= 0.05:
-            raise AssertionError(f"web: ATE {ate} >= 0.05")
-        stats = {"images_per_s": n_cams / dt, "seconds": dt, "ate": ate,
-                 "peak_bytes": peak, "words": voc.n_words,
-                 "candidate_pairs": len(cands),
-                 "pairs_after_word_gate": len(kept), "renders": n_renders,
-                 "stages": GLOBAL_TRACER.report()}
+            runs[-1]["state"] = scene_state(scenes)
+            if not scenes:
+                raise AssertionError("web: no model reconstructed")
+            best = max(scenes, key=lambda s: len(s.registered))
+            est = np.stack([np_geom.camera_center(best.poses[i])
+                            for i in best.registered])
+            ate = synth.ate_vs_gt(est, gt["centers"][best.registered])
+            label = "warm-up, --debug-matches" if debug else "timed"
+            print(f"  web run {run} ({label}): vocabulary "
+                  f"{voc.n_words if voc is not None else 0} words, "
+                  f"{n_word_files} word files; {len(cands)} candidate pairs, "
+                  f"{len(kept)} after the word-seed gate; "
+                  f"{len(best.registered)}/{n_cams} registered, "
+                  f"{best.n_points()} points, ATE {ate:.5f}, {dt:.3f} s = "
+                  f"{n_cams / dt:.4f} images/s, peak {peak / 2**20:.1f} MiB, "
+                  f"launches {launches}, renders {n_renders}", flush=True)
+            if voc is None or n_word_files != n_cams:
+                raise AssertionError(f"web: vocabulary {voc is not None}, "
+                                     f"{n_word_files}/{n_cams} word files")
+            if not kept or launches["knn2"] < 1:
+                raise AssertionError("web: the feature branch matched nothing")
+            if debug and n_renders < 1:
+                raise AssertionError("web: --debug-matches wrote no render")
+            if len(best.registered) != n_cams:
+                raise AssertionError(f"web: registered {len(best.registered)}/"
+                                     f"{n_cams}")
+            if ate >= 0.05:
+                raise AssertionError(f"web: ATE {ate} >= 0.05")
+            stats = {"images_per_s": n_cams / dt, "seconds": dt, "ate": ate,
+                     "peak_bytes": peak, "words": voc.n_words,
+                     "candidate_pairs": len(cands),
+                     "pairs_after_word_gate": len(kept), "renders": n_renders,
+                     "stages": GLOBAL_TRACER.report()}
+    except BaseException:
+        remove_runs(runs)
+        raise
     print("  stage table (timed run):\n" + "\n".join(
         "    " + ln for ln in stats["stages"].splitlines()), flush=True)
-    return launches, stats
+    return launches, stats, {"runs": runs, "centers": gt["centers"]}
+
+
+def remove_runs(runs):
+    for r in runs:
+        shutil.rmtree(r["fold"], ignore_errors=True)
 
 
 def write_exif_jpegs(fold, images, focal_px):
@@ -1509,6 +1553,7 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     import torch
     from metricsfm_tpu_torch import cli
     from metricsfm_tpu_torch.ops import five_point, matching, np_geom
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.exif import extract_image_info
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
@@ -1529,6 +1574,7 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             matching.knn2_gather.launches = 0
+            segment_sum.launches = 0
             five_point.essential_ransac_5pt.calls = 0
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
@@ -1536,7 +1582,8 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
                                str(max_kp), "--device", "cuda"])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = {"knn2": matching.knn2_gather.launches}
+            launches = {"knn2": matching.knn2_gather.launches,
+                        "segsum": segment_sum.launches}
             calls_5pt = five_point.essential_ransac_5pt.calls
         finally:
             shutil.rmtree(fold, ignore_errors=True)
@@ -1711,6 +1758,7 @@ def aerial_phase(rows=10, cols=20, hierarchical=False, matching="priori"):
     import torch
     from metricsfm_tpu_torch.ops import matching as ops_matching
     from metricsfm_tpu_torch.ops import np_geom
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
 
@@ -1719,9 +1767,11 @@ def aerial_phase(rows=10, cols=20, hierarchical=False, matching="priori"):
     GLOBAL_TRACER.reset()
     torch.cuda.reset_peak_memory_stats()
     ops_matching.knn2_gather.launches = 0
+    segment_sum.launches = 0
     scenes, sfm, n_verified, dt, (n_words, n_cand, n_kept) = \
         aerial_run(gt, cfg)
-    launches = {"knn2": ops_matching.knn2_gather.launches}
+    launches = {"knn2": ops_matching.knn2_gather.launches,
+                "segsum": segment_sum.launches}
     peak = torch.cuda.max_memory_allocated()
     if not scenes:
         raise AssertionError("aerial: no model reconstructed")
@@ -2205,9 +2255,10 @@ def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
     default) on a street sequence of n keyframes written in the reference
     formats.  Gates: every keyframe kept, median UTM error < 1.0 m, a
     pose.qin of n rows, and from 128 keyframes the GPS BA's PCG solve.
-    Returns stats."""
+    Returns (launches, stats)."""
     import torch
     from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
 
     fold = tempfile.mkdtemp(prefix="msf_smoke_street_")
@@ -2220,9 +2271,11 @@ def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
+        segment_sum.launches = 0
         t0 = time.perf_counter()
         scene = cli.main(["slam", fold, "--device", device])
         dt = time.perf_counter() - t0
+        launches = {"segsum": segment_sum.launches}
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         err = street_gates(fold, gt, n)
     finally:
@@ -2233,8 +2286,8 @@ def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
           f"{write_s:.3f} s): {len(scene.registered)}/{n} kept, "
           f"{scene.n_points()} points, median UTM error {err:.4f} m; "
           f"{dt:.3f} s = {n / dt:.4f} keyframes/s; peak "
-          f"{peak / 2**20:.1f} MiB; GPS BA {'PCG' if pcg else 'dense'}",
-          flush=True)
+          f"{peak / 2**20:.1f} MiB; GPS BA {'PCG' if pcg else 'dense'}; "
+          f"launches {launches}", flush=True)
     print("  stage table:\n" + "\n".join(
         "    " + ln for ln in GLOBAL_TRACER.report().splitlines()),
         flush=True)
@@ -2242,7 +2295,7 @@ def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
         raise AssertionError(f"street: {len(scene.registered)}/{n} kept")
     if n >= 128 and not pcg:
         raise AssertionError("street: the GPS BA did not run the PCG solve")
-    return {"keyframes_per_s": n / dt, "seconds": dt, "keyframes": n,
+    return launches, {"keyframes_per_s": n / dt, "seconds": dt, "keyframes": n,
             "points": scene.n_points(), "median_utm_err_m": err,
             "peak_bytes": peak, "gps_ba": "pcg" if pcg else "dense",
             "stages": stages}
@@ -2264,6 +2317,7 @@ def street_rematch_phase(n=100, n_pts=6000, min_tracks=1000,
     from metricsfm_tpu_torch.config import street_preset
     from metricsfm_tpu_torch.models import slam_gps
     from metricsfm_tpu_torch.ops import matching
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER, span
 
     fold = tempfile.mkdtemp(prefix="msf_smoke_street_rematch_")
@@ -2276,12 +2330,14 @@ def street_rematch_phase(n=100, n_pts=6000, min_tracks=1000,
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
         matching.knn2_gather.launches = 0
+        segment_sum.launches = 0
         t0 = time.perf_counter()
         pipe = slam_gps.SLAMGPS(street_preset(), device=device)
         with span("slam/run", sync=True):
             scene = pipe.run(fold, rematch=True)
         dt = time.perf_counter() - t0
-        launches = {"knn2": matching.knn2_gather.launches}
+        launches = {"knn2": matching.knn2_gather.launches,
+                    "segsum": segment_sum.launches}
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         err = street_gates(fold, gt, n)
         und = os.listdir(os.path.join(fold, "mtpu_out", "undistort_images"))
@@ -2442,6 +2498,7 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
     from metricsfm_tpu_torch.ops import (epipolar, essential_matching, gist,
                                          lie, lines, matching, panorama,
                                          pnp, sift)
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import (calibration, geo_verification,
                                            pso, synth)
 
@@ -2508,7 +2565,9 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
         inliers=n_inl, gt_share=share, launches=launches["knn2"])
     stats["a_geo_verification"]["kept"] = kept
 
-    # (b) segments and local orientation
+    # (b) segments and local orientation; the segsum count runs from here
+    # to the end of (h): the Hough votes and the BA's sums
+    segment_sum.launches = 0
     img = torch.tensor(segment_image(), device=dev)
     with part("b_lines"):
         seg = lines.detect_segments(img, max_segments=64, n_rho=2048)
@@ -2672,6 +2731,7 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
     stats["h_solve"].update(
         iterations=info["iterations"], lm_iterations_per_s=rate,
         initial_cost=info["initial_cost"], final_cost=info["final_cost"])
+    launches["segsum"] = segment_sum.launches
     return launches, stats
 
 
@@ -2693,18 +2753,20 @@ def mesh_lm_config():
 
 
 # The sharded LM's cases: (label, observation noise in px, LM iterations,
-# the gaps to solve_lm gated at 1e-4 besides the iteration count).  Two
-# solve_lm calls on the card part as the sums through index_add_'s atomics
-# and the forcing sequence's loose CG solves amplify: on 12h's exact
-# problem by 5.6e-6 of cost and 4.5e-5 in the poses after 2 iterations,
-# 2.7e-2 and 6.3e-3 after 8, mid-descent; with 0.5 px of noise the 8
-# iterations end on the floor, cost within 6.3e-6, the poses still 5.1e-3
-# apart (tools/probe_lm_repeat.py).  So the full gate runs 2 iterations of
-# the exact problem, the cost gate 8 of the noisy one, and the 8 exact
-# iterations (12h's run) are timed.
-LM_CASES = (("exact, 8 iterations", 0.0, 8, ()),
-            ("exact, 2 iterations", 0.0, 2, ("cost", "rms_px", "poses")),
-            ("noisy, 8 iterations", 0.5, 8, ("cost", "rms_px")))
+# the gaps to solve_lm gated at 1e-4 besides the iteration count in 13a,
+# and in 13b).  solve_lm sums through fixed-order segment sums (ops/segsum)
+# and gives the same bits call after call, so 13a (world size 1: the same
+# tracks, the same sums, an all-reduce of one rank) is gated in full on
+# every case, the 8 exact iterations of 12h's problem (its timed run)
+# included.  13b's two gloo ranks each round their half of every track sum
+# before the all-reduce adds the halves, and the forcing sequence's loose
+# CG solves amplify that rounding: its full gate stays on 2 iterations of
+# the exact problem, cost and rms_px on 8 of the noisy one, iterations
+# only on the 8 exact ones (phase 13 prints every gap).
+FULL = ("cost", "rms_px", "poses")
+LM_CASES = (("exact, 8 iterations", 0.0, 8, FULL, ()),
+            ("exact, 2 iterations", 0.0, 2, FULL, FULL),
+            ("noisy, 8 iterations", 0.5, 8, FULL, ("cost", "rms_px")))
 
 
 def mesh_ba_problem(device, n_cams, n_pts, noise_px=0.5, seed=5):
@@ -2732,7 +2794,7 @@ def lm_cases(device, plan, solve):
              for noise in {c[1] for c in LM_CASES}}
     solve(probs[0.0], cfg._replace(max_iterations=1))
     out = {"dofs": probs[0.0].n_camera_dofs}
-    for label, noise, iters, _ in LM_CASES:
+    for label, noise, iters, *_ in LM_CASES:
         (solved, info), dt = timed(
             lambda: solve(probs[noise], cfg._replace(max_iterations=iters)),
             device)
@@ -2974,12 +3036,13 @@ def mesh_references(root, plan):
     dev = plan["device"]
     ref = {}
     ref["lm"] = lm_cases(dev, plan, solve_lm)
-    # solve_lm against itself: on the card its sums through index_add_
-    # run in an order that varies from call to call
+    # solve_lm against itself: the same bits (phase 14 gates it)
     again = lm_cases(dev, plan, solve_lm)
     for label, *_ in LM_CASES:
         ref["lm"][label]["repeat"] = lm_gaps(again[label],
                                              ref["lm"][label])
+        ref["lm"][label]["bit_equal"] = lm_bit_equal(again[label],
+                                                     ref["lm"][label])
 
     w, h = plan["web_size"]
     gt = synth.render_scene(seed=0, n_cams=plan["web_views"], width=w,
@@ -3031,10 +3094,11 @@ def mesh_references(root, plan):
 
 def mesh_world1(plan):
     """13a: world size 1 through NCCL (gloo without a card) in this
-    process: solve_lm_sharded against solve_lm (the same iterations, final
-    cost within 1e-4 relative), match_pairs_sharded through 2a (count
+    process: solve_lm_sharded on LM_CASES (the segsum count reset just
+    before, read just after), then match_pairs_sharded through 2a (count
     reset just before, read just after) against match_pair."""
     import torch.distributed as dist
+    from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.parallel import mesh as pm
 
     pm.initialize_distributed(coordinator_address=f"localhost:{free_port()}",
@@ -3046,8 +3110,10 @@ def mesh_world1(plan):
         want = "nccl" if mesh.device.type == "cuda" else "gloo"
         if mesh.backend != want:
             raise AssertionError(f"13a: backend {mesh.backend}, want {want}")
-        out = {"backend": mesh.backend, "lm": mesh_sharded_lm(mesh, plan),
-               "matcher": mesh_matcher(mesh, plan)}
+        segment_sum.launches = 0
+        out = {"backend": mesh.backend, "lm": mesh_sharded_lm(mesh, plan)}
+        out["segsum_launches"] = segment_sum.launches
+        out["matcher"] = mesh_matcher(mesh, plan)
     finally:
         dist.destroy_process_group()
     return out
@@ -3141,12 +3207,22 @@ def lm_gaps(got, ref):
             "poses": raw, "poses_mod_scale": mod_scale, "scale": scale}
 
 
-def lm_gate(label, got, ref, fails):
+def lm_bit_equal(got, ref):
+    """Whether two solves (lm_cases entries) gave the same bits: info
+    (iterations, costs, lambda, rms_px) and poses."""
+    import numpy as np
+    return got["info"] == ref["info"] and np.array_equal(got["poses"],
+                                                         ref["poses"])
+
+
+def lm_gate(label, got, ref, fails, column):
     """The sharded solves against solve_lm on every LM case: the same
-    iterations, and the case's gated gaps within 1e-4 (relative for cost
-    and rms_px, absolute for the poses).  Returns the gaps by case."""
+    iterations, and the gaps of LM_CASES' `column` (3: 13a, 4: 13b) within
+    1e-4 (relative for cost and rms_px, absolute for the poses).  Returns
+    the gaps by case."""
     gaps = {}
-    for case, _, _, gated in LM_CASES:
+    for c in LM_CASES:
+        case, gated = c[0], c[column]
         g, r = got[case], ref[case]
         gap, rep = lm_gaps(g, r), r["repeat"]
         gi = g["info"]
@@ -3215,9 +3291,13 @@ def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
     # a CPU rehearsal runs the kernels' plain versions: no launch to count
     need = 1 if device == "cuda" else 0
     fails = []          # every gate is read before the phase fails
-    stats = {"13a": {"backend": w1["backend"]}, "13b": {}}
+    stats = {"13a": {"backend": w1["backend"]}, "13b": {},
+             "solve_lm_repeat": {
+                 label: {"bit_equal": ref["lm"][label]["bit_equal"],
+                         "gaps": ref["lm"][label]["repeat"]}
+                 for label, *_ in LM_CASES}}
     gap = lm_gate(f"13a sharded LM, world 1 ({w1['backend']})", w1["lm"],
-                  ref["lm"], fails)
+                  ref["lm"], fails, 3)
     timed_case = LM_CASES[0][0]
     stats["13a"]["lm"] = {"lm_iterations_per_s":
                           w1["lm"][timed_case]["lm_iterations_per_s"],
@@ -3238,7 +3318,7 @@ def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
         if res["backend"] != "gloo":
             fails.append(f"{label}: backend {res['backend']}")
         gap = lm_gate(f"{label} sharded LM ({res['backend']}, "
-                      f"{res['card']})", res["lm"], ref["lm"], fails)
+                      f"{res['card']})", res["lm"], ref["lm"], fails, 4)
         m = res["matcher"]
         if m["launches"] < need or m["mismatches"]:
             fails.append(f"{label} matcher: {m}")
@@ -3314,10 +3394,524 @@ def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
     stats["13b"].update(street_median_utm_err_m=street_err, cli_ate=ate,
                         graph_pairs=len(ref["graph"]),
                         seconds=w2_s)
-    return {"knn2": sum(launches)}, stats
+    return {"knn2": sum(launches), "segsum": w1["segsum_launches"]}, stats
 
 
-def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate")):
+# -- reproducibility (phase 14) ----------------------------------------------
+# The port's float sums that ran through atomics (BA, k-means, the Hough
+# votes) go through ops/segsum's fixed-order kernel; SIFT's histograms are
+# batched products.  Phase 14 holds the kernel to its plain version and
+# shows that the same inputs give the same bits, from the kernel up to the
+# chained `cli sfm` -> `cli dense`.
+
+SEGSUM_TOL = 1e-6      # of each bin's sum of |values|
+# H100 SXM FP64 outside the tensor cores: 64 lanes an SM, one add a clock
+PEAK_F64_ADD = 132 * 64 * 1.98e9
+
+
+def segsum_case(label, bins, n_bins, K, dev, gen, mask=None, time_it=False,
+                dtype=None):
+    """One segsum shape on the card: values N(0, 1) (k-means: |N(0, 1)|);
+    the kernel within SEGSUM_TOL of each bin's sum of |values| of its plain
+    version run in f64 on the same values, bit-equal over 3 launches.
+    With `time_it`: CUDA-event times of the kernel, the plain version (in
+    f32, the CPU tests' arithmetic) and index_add_ of the same sums (the
+    yardstick), and the bound (bytes of the kept values, perm, off and the
+    output at 3.35 TB/s; one f64 add a value).  Returns a dict."""
+    import torch
+    from metricsfm_tpu_torch.ops import segsum
+
+    bins = bins.reshape(-1)
+    mask = None if mask is None else mask.reshape(-1)
+    n = bins.numel()
+    values = torch.randn((n, K), generator=gen, device=dev,
+                         dtype=dtype or torch.float32)
+    if label.startswith("k-means"):
+        values = values.abs()
+    plan = segsum.make_plan(bins, n_bins, mask)
+    got = [segsum.segment_sum(values, plan) for _ in range(3)]
+    want = segsum.segment_sum_reference(values.double(), plan)
+    mass = segsum.segment_sum_reference(values.abs().double(), plan)
+    f32 = segsum.segment_sum_reference(values, plan)
+    sync(dev)
+    err = (got[0].double() - want).abs()
+    rel = float((err / mass.clamp_min(1e-300)).max()) if err.numel() else 0.0
+    rel_f32 = float(((f32.double() - want).abs()
+                     / mass.clamp_min(1e-300)).max()) if err.numel() else 0.0
+    repeat = all(torch.equal(g, got[0]) for g in got[1:])
+    kept = int(plan.off[-1])
+    lengths = torch.diff(plan.off)
+    out = {"label": label, "slots": n, "kept": kept, "bins": n_bins, "K": K,
+           "longest": int(lengths.max()) if n_bins else 0,
+           "empty_bins": int((lengths == 0).sum()),
+           "max_rel_err": rel, "plain_f32_max_rel_err": rel_f32,
+           "max_abs_err": float(err.max()) if err.numel() else 0.0,
+           "bit_equal_repeats": repeat}
+    if time_it and torch.device(dev).type == "cuda":
+        idx = bins if mask is None else bins[mask]
+        vals = values if mask is None else values[mask]
+        out["ms"] = cuda_time_ms(lambda: segsum.segment_sum(values, plan))
+        out["plain_ms"] = cuda_time_ms(
+            lambda: segsum.segment_sum_reference(values, plan), reps=3,
+            warmup=1)
+        out["library_ms"] = cuda_time_ms(
+            lambda: torch.zeros((n_bins, K), device=dev).index_add_(
+                0, idx, vals))
+        w = values.element_size()
+        out.update(bound(kept * K, PEAK_F64_ADD,
+                         w * (kept * K + n_bins * K)
+                         + 4 * (kept + n_bins + 1)))
+    print(f"  segsum {label}: {n} slots ({kept} kept) into {n_bins} bins "
+          f"(longest {out['longest']}, {out['empty_bins']} empty), K {K}: "
+          f"max |err| {out['max_abs_err']:.3e} = {rel:.3e} of the bin's "
+          f"sum of |values| (the f32 plain version {rel_f32:.3e}), "
+          f"bit-equal over 3 launches {repeat}"
+          + (f"; {out['ms']:.4f} ms (plain {out['plain_ms']:.3f}, "
+             f"index_add_ {out['library_ms']:.4f}), {bound_text(out)}"
+             if "ms" in out else ""), flush=True)
+    # the CPU's segment_sum is the plain version itself, which adds in f32
+    # one slot after another: its own error reaches ~6e-6 on a 30k-row bin
+    tol = SEGSUM_TOL if torch.device(dev).type == "cuda" else float("inf")
+    if not (rel <= tol and repeat):
+        raise AssertionError(f"segsum {label}: error {rel} of the sum of "
+                             f"|values| (limit {SEGSUM_TOL}), bit-equal "
+                             f"repeats {repeat}")
+    return out
+
+
+def segsum_phase(dev="cuda"):
+    """14a: the segsum kernel on BA's shape (12h: 786,432 slots into 1,024
+    cameras, K = 9, 36 and 81), k-means' (4c: ~98k descriptors into 85
+    coarse cells, K = 128, non-negative, skewed), the Hough votes'
+    (K = 1, in f64), and the edges: one bin, a bin
+    holding 90 % of the slots, bins mostly empty, masked slots, K = 3, 6,
+    18, 27 and 128 columns past a tile.  Returns the table row: BA's
+    matvec shape (K = 9) timed, every case listed."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def uniform(n, n_bins):
+        return torch.randint(0, n_bins, (n,), generator=gen, device=dev)
+
+    def skewed(n, n_bins, share):
+        b = uniform(n, n_bins)
+        heavy = torch.rand(n, generator=gen, device=dev) < share
+        return torch.where(heavy, torch.zeros_like(b), b)
+
+    ba = uniform(786432, 1024).reshape(131072, 6)
+    cases = [segsum_case("BA matvec (cameras)", ba, 1024, 9, dev, gen,
+                         time_it=True)]
+    for K in (36, 81):
+        cases.append(segsum_case("BA blocks (cameras)", ba, 1024, K, dev,
+                                 gen, time_it=True))
+    cases += [
+        segsum_case("k-means (coarse cells)", skewed(98304, 85, 0.3), 85,
+                    128, dev, gen, time_it=True),
+        segsum_case("one bin", uniform(50000, 1), 1, 6, dev, gen),
+        segsum_case("a bin with 90 %", skewed(200000, 500, 0.9), 500, 3,
+                    dev, gen),
+        segsum_case("mostly empty bins", uniform(5000, 1 << 20), 1 << 20,
+                    18, dev, gen),
+        segsum_case("masked slots", uniform(100000, 64), 64, 27, dev, gen,
+                    mask=torch.rand(100000, generator=gen, device=dev)
+                    < 0.5),
+        segsum_case("Hough votes (f64)", uniform(400000, 180 * 256),
+                    180 * 256, 1, dev, gen, dtype=torch.float64),
+        segsum_case("no slots", uniform(0, 10), 10, 128, dev, gen),
+    ]
+    row = cases[0]
+    if "ms" not in row:                  # a CPU rehearsal times nothing
+        return {"name": "segsum", "cases": cases}
+    return {"name": "segsum", "route": "cuda",
+            "source": "metricsfm_tpu_torch/ops/csrc/segsum.cu",
+            "replaces": "none: a port-only kernel (the port's atomic "
+                        "index_add_ / scatter_add_ float sums)",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_rel_err": max(c["max_rel_err"] for c in cases),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": f"{row['slots']} slots into {row['bins']} bins, K 9",
+            "cases": cases}
+
+
+def lm_twice(label, prob, cfg):
+    """solve_lm twice on the same problem: bit-equal info, poses and
+    points.  Returns (bit-equal, info)."""
+    import torch
+    from metricsfm_tpu_torch.ba.lm import solve_lm
+
+    runs = [solve_lm(prob, cfg) for _ in range(2)]
+    sync(prob.points.device)
+    (a, ia), (b, ib) = runs
+    same = ia == ib and all(torch.equal(getattr(a, k), getattr(b, k))
+                            for k in ("poses", "intrs", "points"))
+    print(f"  solve_lm twice, {label}: {ia['iterations']} iterations, cost "
+          f"{ia['initial_cost']:.6e} -> {ia['final_cost']:.6e} / "
+          f"{ib['final_cost']:.6e}, rms_px {ia['rms_px']:.6e} / "
+          f"{ib['rms_px']:.6e}; bit-equal {same}", flush=True)
+    return same, ia
+
+
+def triples_problem(dev, n_cams=64, n_pts=8192):
+    """Phase 13's noisy problem at n_cams cameras with GPS anchors at its
+    (perturbed) camera centres, 0.1 m of seeded noise, and GPS triples of
+    consecutive cameras: every camera is shared by up to three triples."""
+    import torch
+    from metricsfm_tpu_torch.ops import projection
+
+    prob = mesh_ba_problem(dev, n_cams, n_pts)
+    g = torch.Generator().manual_seed(9)
+    gps = projection.camera_center(prob.poses).cpu() \
+        + 0.1 * torch.randn((n_cams, 3), generator=g)
+    i = torch.arange(n_cams - 2)
+    trip = torch.stack([i, i + 1, i + 2], dim=1)
+    return prob._replace(
+        gps_pos=gps.to(dev), gps_weight=torch.ones((n_cams, 3), device=dev),
+        gps_triple=trip.to(dev),
+        gps_triple_weight=torch.full((n_cams - 2, 2), 2.0, device=dev))
+
+
+def lm_repeat_phase(mesh_stats, dev="cuda", dense_shape=(64, 16384),
+                    triples_shape=(64, 8192)):
+    """14b: solve_lm twice, bit-equal: 12h's problem (phase 13's references
+    ran every LM_CASES case twice: read here), a dense-Schur problem (64
+    cameras x 16,384 points, 0.5 px of noise) and a problem with GPS
+    triples (triples_problem, 64 x 8,192) by dense Schur and by PCG."""
+    from metricsfm_tpu_torch.ba.lm import LMConfig
+
+    fails = []
+    for label, rec in mesh_stats["solve_lm_repeat"].items():
+        print(f"  solve_lm twice, 12h's problem, {label} (phase 13): "
+              f"bit-equal {rec['bit_equal']}, gaps {rec['gaps']}",
+              flush=True)
+        if not rec["bit_equal"]:
+            fails.append(f"12h {label}")
+    dense = LMConfig(max_iterations=8, rtol=0.0)
+    pcg = mesh_lm_config()
+    cases = {"dense Schur": (mesh_ba_problem(dev, *dense_shape), dense),
+             "GPS triples, dense Schur": (
+                 triples_problem(dev, *triples_shape), dense),
+             "GPS triples, PCG": (triples_problem(dev, *triples_shape),
+                                  pcg)}
+    out = {}
+    for label, (prob, cfg) in cases.items():
+        same, info = lm_twice(label, prob, cfg)
+        out[label] = {"bit_equal": same, "info": info}
+        if not same:
+            fails.append(label)
+    if fails:
+        raise AssertionError(f"14b: solve_lm differs from itself: {fails}")
+    return out
+
+
+def sift_words_repeat(web_runs, max_kp=4096, device="cuda"):
+    """14c: the same inputs twice through SIFT (one 4c view, read from its
+    PNG as the Database reads it), and through the vocabulary, the word
+    bags and the candidate list of 4c's descriptors (each time in a fresh
+    store holding the timed run's features only).  Every output equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.config import PRESETS
+    from metricsfm_tpu_torch.io import store as fstore
+    from metricsfm_tpu_torch.models.database import (Database,
+                                                     load_image_gray)
+    from metricsfm_tpu_torch.models.match_graph import candidates_feature
+    from metricsfm_tpu_torch.ops import sift
+
+    fold = web_runs[-1]["fold"]
+    img = torch.tensor(load_image_gray(os.path.join(fold, "view_000.png"))[0],
+                       device=device)
+    cfg_sift = sift.SiftConfig(max_keypoints=max_kp)
+    a, b = (sift.extract(img, cfg_sift) for _ in range(2))
+    sift_same = all(torch.equal(a[k], b[k]) for k in a)
+    cfg = PRESETS["web"]()
+    db_opts = dataclasses.replace(cfg.database, resize=False,
+                                  max_keypoints=max_kp)
+    runs = []
+    for _ in range(2):
+        copy = tempfile.mkdtemp(prefix="msf_smoke_words_")
+        try:
+            for name in os.listdir(fold):
+                if name.endswith(".png"):
+                    shutil.copy(os.path.join(fold, name), copy)
+            src, dst = os.path.join(fold, "mtpu_db"), os.path.join(
+                copy, "mtpu_db")
+            shutil.copytree(src, dst, ignore=lambda d, names: [
+                n for n in names if "_feature" not in n])
+            db = Database(copy, db_opts, device=device)
+            cands, kept = candidates_feature(db, cfg.graph, device)
+            voc = fstore.read_vocabulary(db.out, "cpu")
+            runs.append({"coarse": voc.coarse.numpy(),
+                         "fine": voc.fine.numpy(), "words": db.word_lists(),
+                         "cands": cands, "kept": kept})
+        finally:
+            shutil.rmtree(copy, ignore_errors=True)
+    r0, r1 = runs
+    voc_same = np.array_equal(r0["coarse"], r1["coarse"]) and \
+        np.array_equal(r0["fine"], r1["fine"])
+    words_same = all(np.array_equal(x, y)
+                     for x, y in zip(r0["words"], r1["words"]))
+    cand_same = r0["cands"] == r1["cands"] and r0["kept"] == r1["kept"]
+    print(f"  twice: SIFT of view 0 ({int(a['mask'].sum())} keypoints) "
+          f"equal {sift_same}; vocabulary ({r0['fine'].shape[0]} x "
+          f"{r0['fine'].shape[1]} words) equal {voc_same}; word bags equal "
+          f"{words_same}; candidates ({len(r0['cands'])}, "
+          f"{len(r0['kept'])} after the word-seed gate) equal {cand_same}",
+          flush=True)
+    if not (sift_same and voc_same and words_same and cand_same):
+        raise AssertionError(f"14c: SIFT {sift_same}, vocabulary "
+                             f"{voc_same}, words {words_same}, candidates "
+                             f"{cand_same}")
+    return {"sift": sift_same, "vocabulary": voc_same, "words": words_same,
+            "candidates": cand_same, "n_candidates": len(r0["cands"]),
+            "n_kept": len(r0["kept"])}
+
+
+def web_runs_equal(web_runs):
+    """14d: 4c's two runs (the warm-up differs by --debug-matches only):
+    the same models, poses and points, bit for bit."""
+    import numpy as np
+    a, b = (r["state"] for r in web_runs)
+    same = len(a) == len(b) and all(
+        x["registered"] == y["registered"]
+        and np.array_equal(x["poses"], y["poses"])
+        and np.array_equal(x["points"], y["points"]) for x, y in zip(a, b))
+    pose_gap = max((float(np.abs(x["poses"] - y["poses"]).max())
+                    for x, y in zip(a, b)
+                    if x["poses"].shape == y["poses"].shape), default=-1.0)
+    print(f"  4c's two runs: {len(a)} / {len(b)} models, "
+          f"{[len(x['points']) for x in a]} / {[len(x['points']) for x in b]}"
+          f" points; poses and points bit-equal {same} (largest pose "
+          f"difference {pose_gap:.3e})", flush=True)
+    if not same:
+        raise AssertionError("14d: 4c's two runs differ")
+    return {"bit_equal": same}
+
+
+# The chained cli sfm -> cli dense gates, the JAX dense tests' in depth: a
+# dense point counts as on the scene when, after the SfM frame is aligned
+# to the truth, it lies within the depth that one pixel of disparity spans
+# at its depth (z^2 / (f B): 0.24 scene units at the fixation distance 8,
+# f 1126 px and 4c's 0.24 baseline) of a rendered plane; at least
+# CHAIN_ON_PLANE_MIN of a run's points must (tests/test_sgm_dense.py:
+# |err| < 2 px share > 0.8).  Each pair's valid share must pass their 0.3.
+CHAIN_ON_PLANE_MIN = 0.8
+CHAIN_VALID_MIN = 0.3
+
+
+def plane_distance(X, planes, margin=0.05):
+    """Distance (N,) of world points to the nearest rendered rectangle (a
+    plane P0 + s U + t V, s and t in [0, 1] grown by `margin`) whose
+    footprint holds the point's foot; inf where none does."""
+    import numpy as np
+    d = np.full(len(X), np.inf)
+    for p in planes:
+        U, V, P0 = (np.asarray(p[k], float) for k in ("U", "V", "P0"))
+        n = np.cross(U, V)
+        n /= np.linalg.norm(n)
+        rel = X - P0
+        G = np.array([[U @ U, U @ V], [U @ V, V @ V]])
+        st = np.linalg.solve(G, np.stack([rel @ U, rel @ V]))
+        inside = np.all((st >= -margin) & (st <= 1 + margin), axis=0)
+        d = np.minimum(d, np.where(inside, np.abs(rel @ n), np.inf))
+    return d
+
+
+def chain_points(fold, sure, depth_scale, depth_clamp, stride=4):
+    """Per pair of a `cli dense` run on `sure`, from what the run wrote:
+    the valid share of its depth map, its disparity range, and its points
+    in the SfM frame (every `stride`-th pixel), each with the depth one
+    pixel of disparity spans there (z^2 / (f B)): the written depth is the
+    reference's depth_scale f B / d (clamped at depth_clamp; 0 where
+    invalid), divided back here, lifted through the pair's rectified
+    camera (pose_rect_i.txt, and Kn from dense.rectify_pair)."""
+    import numpy as np
+    from metricsfm_tpu_torch.models import dense
+
+    cams = dense.read_sure_pose_file(sure)
+    pairs = []
+    for i in range(len(cams) - 1):
+        a, b = cams[i], cams[i + 1]
+        _, Kn, _, _, baseline = dense.rectify_pair(a.K, a.R, a.t, b.K,
+                                                   b.R, b.t)
+        depth = np.load(os.path.join(fold, "dense", f"depth_{i}.npy"))
+        Rt = np.loadtxt(os.path.join(fold, "dense", f"pose_rect_{i}.txt"))
+        valid = depth > 0
+        disp = depth_scale * Kn[0, 0] * baseline / depth[valid]
+        sub = depth[::stride, ::stride]
+        ys, xs = np.mgrid[0:depth.shape[0]:stride, 0:depth.shape[1]:stride]
+        ok = (sub > 0) & (sub < depth_clamp)
+        z = sub[ok] / depth_scale
+        rays = np.linalg.inv(Kn) @ np.stack([xs[ok], ys[ok],
+                                            np.ones(ok.sum())])
+        Xc = (rays * z).T
+        Xw = (Xc - Rt[:, 3]) @ Rt[:, :3]
+        pairs.append({"names": (a.name, b.name), "points": Xw,
+                      "px_depth": z * z / (Kn[0, 0] * baseline),
+                      "valid_share": float(valid.mean()),
+                      "disparity": (float(disp.min()), float(disp.max()))
+                      if disp.size else (0.0, 0.0),
+                      "clamped": int((depth >= depth_clamp).sum())})
+    return cams, pairs
+
+
+def sfm_to_truth(cams, gt_centers):
+    """The similarity (s, R, t) taking the SfM frame onto the truth:
+    Umeyama on the centres of the SURE file's cameras (view_iii.png ->
+    rendered view i)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch.ops import umeyama
+
+    idx = [int(c.name.split("_")[1].split(".")[0]) for c in cams]
+    est = np.stack([-c.R.T @ c.t for c in cams])
+    s, R, t = umeyama.similarity_align(torch.as_tensor(est),
+                                       torch.as_tensor(gt_centers[idx]))
+    return float(s), R.numpy(), t.numpy()
+
+
+def chain_gates(pairs, align, label):
+    """Take the pairs' points into the truth by `align` (sfm_to_truth),
+    then gate every pair's valid share and the share of all points on the
+    rendered planes.  Returns stats."""
+    import numpy as np
+    from metricsfm_tpu_torch.utils import synth
+
+    s, R, t = align
+    X = np.concatenate([p["points"] for p in pairs]) if pairs else \
+        np.zeros((0, 3))
+    px = s * np.concatenate([p["px_depth"] for p in pairs]) if pairs else \
+        np.zeros(0)
+    dist = plane_distance(s * X @ R.T + t, synth.default_planes())
+    on = float((dist < px).mean()) if len(X) else 0.0
+    med = float(np.median(dist[np.isfinite(dist)])) if len(X) else np.inf
+    med_px = float(np.median(px)) if len(X) else np.inf
+    shares = [p["valid_share"] for p in pairs]
+    d_lo = min((p["disparity"][0] for p in pairs), default=0.0)
+    d_hi = max((p["disparity"][1] for p in pairs), default=0.0)
+    print(f"  {label}: {len(pairs)} pairs, valid share "
+          f"{min(shares, default=0):.4f}-{max(shares, default=0):.4f}, "
+          f"disparity {d_lo:.2f}-{d_hi:.2f} px, "
+          f"{sum(p['clamped'] for p in pairs)} clamped depths; "
+          f"{len(X)} points, {on:.4f} within one disparity pixel's depth "
+          f"(median {med_px:.4f}) of a rendered plane (median distance "
+          f"{med:.4f}; SfM frame scaled by {s:.4f} onto the truth)",
+          flush=True)
+    fails = []
+    if not pairs or min(shares) <= CHAIN_VALID_MIN:
+        fails.append(f"valid share {min(shares, default=0)}")
+    if on < CHAIN_ON_PLANE_MIN:
+        fails.append(f"on-plane share {on}")
+    if fails:
+        raise AssertionError(f"{label}: " + "; ".join(fails))
+    return {"pairs": len(pairs), "valid_share_min": min(shares),
+            "disparity_px": [d_lo, d_hi], "on_plane_share": on,
+            "median_plane_distance": med, "median_px_depth": med_px}
+
+
+def chain_phase(web_runs, gt_centers, D=128, device="cuda"):
+    """14e: `cli dense` (SGM, 2c -> 2d -> 2e -> 2f) on the sfm_sure.txt of
+    each of 4c's two runs, over its consecutive pairs: the depth maps bit-
+    equal across the runs, every pair's valid share > 0.3, the dense points
+    on the rendered planes (chain_gates); then `cli dense --method elas` on
+    the first pair of the timed run, gated alike.  Returns (SGM launches of
+    the timed run's dense, stats)."""
+    import numpy as np
+    import torch
+    from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.config import DenseOptions
+    from metricsfm_tpu_torch.ops import sgm_kernel
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+    opts = DenseOptions()
+    depths, stats = [], {}
+    for run in web_runs:
+        fold = run["fold"]
+        sure = os.path.join(fold, "mtpu_db", "model_0", "sfm_sure.txt")
+        GLOBAL_TRACER.reset()
+        sync(device)
+        sgm_kernel.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(["dense", fold, "--pose-file", sure, "--disp", str(D),
+                  "--device", device])
+        sync(device)
+        dt = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in sgm_kernel.KERNELS}
+        cams, pairs = chain_points(fold, sure, opts.depth_scale,
+                                   opts.depth_clamp)
+        align = sfm_to_truth(cams, gt_centers)
+        depths.append([np.load(os.path.join(fold, "dense",
+                                            f"depth_{i}.npy"))
+                       for i in range(len(pairs))])
+        print(f"  cli dense on 4c's sfm_sure.txt: {len(cams)} cameras, "
+              f"{dt:.3f} s, dense/stereo "
+              f"{GLOBAL_TRACER.as_dict()['dense/stereo']['total_s']:.4f} s, "
+              f"launches {launches}", flush=True)
+        stats = chain_gates(pairs, align, "chained SGM")
+        stats["seconds"] = dt
+    same = len(depths[0]) == len(depths[1]) and all(
+        np.array_equal(x, y) for x, y in zip(*depths))
+    print(f"  the two runs' {len(depths[0])} depth maps bit-equal {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("14e: the chained depth maps differ")
+    # ELAS on the first pair, in a folder of its own
+    fold = web_runs[-1]["fold"]
+    sure = os.path.join(fold, "mtpu_db", "model_0", "sfm_sure.txt")
+    with open(sure) as f:
+        lines = f.read().splitlines()
+    elas = tempfile.mkdtemp(prefix="msf_smoke_chain_elas_")
+    try:
+        first = lines[:8 + 18]        # 8 header lines, 9 a camera
+        for ln in (first[8], first[17]):
+            shutil.copy(os.path.join(fold, ln.split()[0]), elas)
+        pair_file = os.path.join(elas, "pair_sure.txt")
+        with open(pair_file, "w") as f:
+            f.write("\n".join(first) + "\n")
+        t0 = time.perf_counter()
+        cli.main(["dense", elas, "--pose-file", pair_file, "--disp", str(D),
+                  "--method", "elas", "--device", device])
+        dt = time.perf_counter() - t0
+        _, pairs = chain_points(elas, pair_file, opts.depth_scale,
+                                opts.depth_clamp)
+        # the timed run's frame, aligned on all its cameras
+        stats["elas"] = chain_gates(pairs, align,
+                                    "chained ELAS, first pair")
+        stats["elas"]["seconds"] = dt
+    finally:
+        shutil.rmtree(elas, ignore_errors=True)
+    stats["depth_maps_bit_equal"] = same
+    return launches, stats
+
+
+def repro_phase(mesh_stats, web, device="cuda", max_kp=4096, D=128,
+                lm_shapes=((64, 16384), (64, 8192))):
+    """14: reproducibility.  (a) the segsum kernel against its plain
+    version; (b) solve_lm twice; (c) SIFT, the vocabulary and the
+    candidates twice; (d) 4c's two runs; (e) the chained cli sfm -> cli
+    dense on both of 4c's runs (`web`: web_path_phase's runs and the
+    rendered centres).  Removes 4c's folders.  Returns (the segsum row,
+    the chained SGM launches, stats).  `device="cpu"` with a small 4c
+    rehearses it on the CPU (the kernel's plain version, nothing timed)."""
+    runs = web["runs"]
+    try:
+        row = segsum_phase(device)
+        stats = {"lm": lm_repeat_phase(mesh_stats, device, *lm_shapes),
+                 "sift_words": sift_words_repeat(runs, max_kp, device),
+                 "web_runs": web_runs_equal(runs)}
+        chain_launches, stats["chain"] = chain_phase(runs, web["centers"],
+                                                     D, device)
+    finally:
+        remove_runs(runs)
+    return row, chain_launches, stats
+
+
+def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate",
+                       "segsum")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
     from metricsfm_tpu_torch.ops import cuda_build
@@ -3376,87 +3970,104 @@ def main(argv=None):
         exif_launches, exif_stats = exif_path_phase()
         check_launches(exif_launches, "the calibrated sfm path")
     with phase("4c web path: default cli sfm on 24 views, BoW candidates"):
-        web_launches, web_stats = web_path_phase()
+        web_launches, web_stats, web = web_path_phase()
         check_launches(web_launches, "the web sfm path")
-    with phase("5 dense path: cli dense"):
-        dense_launches, dense_stats = dense_phase()
-        check_launches({k: n for k, n in dense_launches.items()
-                        if k in FUSED_KERNELS}, "the dense path")
-    with phase("6 dense volume path: stereo_sgm_volume"):
-        volume_launches, volume_stats = volume_phase()
-    with phase("7 dense ELAS path: cli dense --method elas"):
-        _, elas_stats = dense_phase(method="elas")
-    with phase("8 matching-throughput path: kernels 2b and 2a"):
-        tput_launches, tput_rates = throughput_phase()
-        check_launches(tput_launches, "the matching-throughput path")
-    with phase("9 aerial path: 200 views, priori candidates, PCG"):
-        aerial_launches, aerial_stats = aerial_phase()
-        check_launches(aerial_launches, "the aerial path")
-    with phase("9c aerial path: 500 views, hierarchical submap BA"):
-        big_launches, big_stats = aerial_phase(rows=20, cols=25,
-                                               hierarchical=True)
-        check_launches(big_launches, "the 500-view aerial path")
-    with phase("9d aerial path: 200 views, vocabulary-tree candidates"):
-        bow_launches, bow_stats = aerial_phase(matching="feature")
-        check_launches(bow_launches, "the BoW aerial path")
-    with phase("11a street path: cli slam, 1,000 keyframes, GPS BA by PCG"):
-        street_stats = street_fixed_phase()
-    with phase("11b street re-match path: 100 rendered keyframes, 2a"):
-        street_launches, rematch_stats, ragged_err = street_rematch_phase()
-        check_launches(street_launches, "the street re-match path")
-    with phase("12 auxiliary ops"):
-        aux_launches, aux_stats = aux_phase(card)
-        check_launches(aux_launches, "the auxiliary ops")
-    with phase("13 multi-GPU: world 1 through NCCL, 2 gloo ranks on the card"):
-        mesh_launches, mesh_stats = mesh_phase(card)
-        check_launches(mesh_launches, "the multi-GPU path")
-    # a kernel's launches: the sum of its counts over the paths' timed runs
-    for path_launches in (exif_launches, web_launches, dense_launches,
-                          volume_launches, tput_launches, aerial_launches,
-                          big_launches, bow_launches, street_launches,
-                          aux_launches, mesh_launches):
-        for k, n in path_launches.items():
-            launches[k] = launches.get(k, 0) + n
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        if row["name"] == "knn2_int8":   # its quantize pass, same row
-            row["quantize_launches"] = launches["quantize_pair_int8"]
-        if row["name"] == "knn2":        # the street keyframes' own store
-            row["max_abs_err"] = max(row["max_abs_err"], ragged_err)
-    check_launches({r["name"]: r["launches"] for r in rows}, "a path")
-    if args.profile:
-        with phase("9b profiled end-to-end paths"):
-            profile_phase(args.profile)
-            profile_aerial()
-    with phase("10 report"):
-        print(json.dumps({
-            "e2e": {k: v for k, v in stats.items() if k != "stages"},
-            "e2e_exif": {k: v for k, v in exif_stats.items()
-                         if k != "stages"},
-            "e2e_web": {k: v for k, v in web_stats.items()
-                        if k != "stages"},
-            "dense": {k: v for k, v in dense_stats.items() if k != "stages"},
-            "dense_volume": volume_stats,
-            "dense_elas": {k: v for k, v in elas_stats.items()
-                           if k != "stages"},
-            "matching_throughput_pairs_per_s": tput_rates,
-            "aerial": {k: v for k, v in aerial_stats.items()
-                       if k != "stages"},
-            "aerial_500": {k: v for k, v in big_stats.items()
-                           if k != "stages"},
-            "aerial_bow": {k: v for k, v in bow_stats.items()
-                           if k != "stages"},
-            "street": {k: v for k, v in street_stats.items()
-                       if k != "stages"},
-            "street_rematch": {k: v for k, v in rematch_stats.items()
+    try:   # phase 14 reads 4c's folders; removed however the run ends
+        with phase("5 dense path: cli dense"):
+            dense_launches, dense_stats = dense_phase()
+            check_launches({k: n for k, n in dense_launches.items()
+                            if k in FUSED_KERNELS}, "the dense path")
+        with phase("6 dense volume path: stereo_sgm_volume"):
+            volume_launches, volume_stats = volume_phase()
+        with phase("7 dense ELAS path: cli dense --method elas"):
+            _, elas_stats = dense_phase(method="elas")
+        with phase("8 matching-throughput path: kernels 2b and 2a"):
+            tput_launches, tput_rates = throughput_phase()
+            check_launches(tput_launches, "the matching-throughput path")
+        with phase("9 aerial path: 200 views, priori candidates, PCG"):
+            aerial_launches, aerial_stats = aerial_phase()
+            check_launches(aerial_launches, "the aerial path")
+        with phase("9c aerial path: 500 views, hierarchical submap BA"):
+            big_launches, big_stats = aerial_phase(rows=20, cols=25,
+                                                   hierarchical=True)
+            check_launches(big_launches, "the 500-view aerial path")
+        with phase("9d aerial path: 200 views, vocabulary-tree candidates"):
+            bow_launches, bow_stats = aerial_phase(matching="feature")
+            check_launches(bow_launches, "the BoW aerial path")
+        with phase("11a street path: cli slam, 1,000 keyframes, GPS BA by "
+                   "PCG"):
+            street_fixed_launches, street_stats = street_fixed_phase()
+            check_launches(street_fixed_launches, "the street path")
+        with phase("11b street re-match path: 100 rendered keyframes, 2a"):
+            street_launches, rematch_stats, ragged_err = street_rematch_phase()
+            check_launches(street_launches, "the street re-match path")
+        with phase("12 auxiliary ops"):
+            aux_launches, aux_stats = aux_phase(card)
+            check_launches(aux_launches, "the auxiliary ops")
+        with phase("13 multi-GPU: world 1 through NCCL, 2 gloo ranks on "
+                   "the card"):
+            mesh_launches, mesh_stats = mesh_phase(card)
+            check_launches(mesh_launches, "the multi-GPU path")
+        with phase("14 reproducibility: segsum, solve_lm, SIFT and words, 4c, "
+                   "cli sfm -> cli dense"):
+            segsum_row, chain_launches, repro_stats = repro_phase(
+                mesh_stats, web)
+            check_launches({k: n for k, n in chain_launches.items()
+                            if k in FUSED_KERNELS}, "the chained dense path")
+        rows.append(segsum_row)
+        # a kernel's launches: the sum of its counts over the paths' timed runs
+        for path_launches in (exif_launches, web_launches, dense_launches,
+                              volume_launches, tput_launches, aerial_launches,
+                              big_launches, bow_launches,
+                              street_fixed_launches,
+                              street_launches, aux_launches, mesh_launches,
+                              chain_launches):
+            for k, n in path_launches.items():
+                launches[k] = launches.get(k, 0) + n
+        for row in rows:
+            row["launches"] = launches[row["name"]]
+            if row["name"] == "knn2_int8":   # its quantize pass, same row
+                row["quantize_launches"] = launches["quantize_pair_int8"]
+            if row["name"] == "knn2":        # the street keyframes' own store
+                row["max_abs_err"] = max(row["max_abs_err"], ragged_err)
+        check_launches({r["name"]: r["launches"] for r in rows}, "a path")
+        if args.profile:
+            with phase("9b profiled end-to-end paths"):
+                profile_phase(args.profile)
+                profile_aerial()
+        with phase("10 report"):
+            print(json.dumps({
+                "e2e": {k: v for k, v in stats.items() if k != "stages"},
+                "e2e_exif": {k: v for k, v in exif_stats.items()
+                             if k != "stages"},
+                "e2e_web": {k: v for k, v in web_stats.items()
+                            if k != "stages"},
+                "dense": {k: v for k, v in dense_stats.items()
+                          if k != "stages"},
+                "dense_volume": volume_stats,
+                "dense_elas": {k: v for k, v in elas_stats.items()
                                if k != "stages"},
-            "aux": aux_stats, "mesh": mesh_stats}), flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+                "matching_throughput_pairs_per_s": tput_rates,
+                "aerial": {k: v for k, v in aerial_stats.items()
+                           if k != "stages"},
+                "aerial_500": {k: v for k, v in big_stats.items()
+                               if k != "stages"},
+                "aerial_bow": {k: v for k, v in bow_stats.items()
+                               if k != "stages"},
+                "street": {k: v for k, v in street_stats.items()
+                           if k != "stages"},
+                "street_rematch": {k: v for k, v in rematch_stats.items()
+                                   if k != "stages"},
+                "aux": aux_stats, "mesh": mesh_stats,
+                "repro": repro_stats}), flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    finally:
+        remove_runs(web["runs"])
 
 
 if __name__ == "__main__":

@@ -7,11 +7,15 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
   ``torch.func.vmap(jacfwd)`` over the flattened (P, V) track tensor.
 * Huber robustness is IRLS: residual/Jacobian rows scaled by sqrt(rho'(s)).
 * Elimination: point blocks H_pp are (P, 3, 3) closed-form inverses; the
-  reduced camera system S (6C+3M dofs) is assembled with ``index_add_``
-  (camera/model-indexed sums) and one (6C+3M, 3P) x (3P, 6C+3M) product
-  for the Schur fill.  On CUDA index_add_ sums floats through atomics in
-  a run-dependent order: two runs agree to f32 rounding (relative ~1e-6
-  per entry), not bit for bit.
+  reduced camera system S (6C+3M dofs) is assembled from camera- and
+  model-indexed sums and one (6C+3M, 3P) x (3P, 6C+3M) product for the
+  Schur fill.
+* Every sum over observation slots (or over triples sharing a camera)
+  goes through ``ops.segsum.segment_sum`` with the plans of `BAPlans`,
+  made once per solve (the index sets do not change across iterations):
+  on the card one launch of the segsum kernel, which adds in a fixed
+  order without atomics, so two solves on the same inputs give the same
+  bits.  Masked slots are dropped from the plans.
 * Mutability masks freeze dofs by zeroing their rows/cols and pinning the
   diagonal (optimizer.cc:86-125).
 * The LM loop is a Python loop with accept/reject damping and one host
@@ -20,7 +24,7 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
   block-Jacobi PCG instead (used from sfm.th_cg_cameras cameras up): no
   (D, D) matrix and no O(P*C) factor, only O(P*V) per-track tensors.  The
   JAX package's lane-major layouts and one-hot reducers exist for the TPU;
-  here slot sums go through ``index_add_``, and the CG loop keeps an
+  here slot sums go through the same segment sums, and the CG loop keeps an
   on-device "active" flag polled every few iterations instead of reading a
   host scalar per iteration.  With cg_forcing, the CG tolerance follows the
   inexact-Newton forcing sequence (Agarwal et al., "Bundle Adjustment in
@@ -47,12 +51,13 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.func import jacfwd, vmap
 
 from ..ops import projection
+from ..ops.segsum import SegmentPlan, make_plan, segment_sum
 from .problem import BAProblem
 
 
@@ -74,6 +79,57 @@ class LMConfig(NamedTuple):
     # cg_eta0 and tightens to max(eta^1.5, cg_tol) on accepted LM steps
     cg_forcing: bool = True
     cg_eta0: float = 0.25
+
+
+class BAPlans(NamedTuple):
+    """Segment plans (ops/segsum) of one BA problem's index sets, which an
+    LM solve never changes.  Observation slots (P, V) by camera (`cam`)
+    and by model (`model`), cameras by model (`cam_model`, the PCG
+    matvec's fold); with prior terms, the triples' (T, 3) cameras
+    (`triple`) and their (T, 3, 3) camera pairs (`pair`, the dense path's
+    S); in the dense path the slots by point and camera / model
+    (`point_cam`, `point_model`: the Schur fill's G factors).  Masked
+    slots and zero-weight triples are dropped."""
+    cam: SegmentPlan
+    model: SegmentPlan
+    cam_model: SegmentPlan
+    triple: Optional[SegmentPlan] = None
+    pair: Optional[SegmentPlan] = None
+    point_cam: Optional[SegmentPlan] = None
+    point_model: Optional[SegmentPlan] = None
+
+
+def _triple_plans(problem: BAProblem, pairs: bool):
+    """The live triples' (T, 3) cameras, and with `pairs` their (T, 3, 3)
+    camera pairs (a * C + b)."""
+    C, trip = problem.n_cameras, problem.gps_triple
+    live = torch.any(problem.gps_triple_weight != 0, dim=-1)
+    triple = make_plan(trip, C, live[:, None].expand_as(trip))
+    if not pairs:
+        return triple, None
+    return triple, make_plan(trip[:, :, None] * C + trip[:, None, :], C * C,
+                             live[:, None, None].expand(-1, 3, 3))
+
+
+def make_plans(problem: BAProblem, cfg, priors: bool) -> BAPlans:
+    """The plans one solve of `problem` sums through (`priors`: with the
+    prior terms' plans)."""
+    C, M, P = problem.n_cameras, problem.n_models, problem.n_points
+    cam = problem.track_cam
+    model = problem.cam_model[cam]
+    mask = problem.track_mask
+    plans = BAPlans(cam=make_plan(cam, C, mask),
+                    model=make_plan(model, M, mask),
+                    cam_model=make_plan(problem.cam_model, M))
+    if priors:
+        triple, pair = _triple_plans(problem, cfg.cg_iterations <= 0)
+        plans = plans._replace(triple=triple, pair=pair)
+    if cfg.cg_iterations <= 0:
+        p_idx = torch.arange(P, device=cam.device)[:, None]
+        plans = plans._replace(
+            point_cam=make_plan(p_idx * C + cam, P * C, mask),
+            point_model=make_plan(p_idx * M + model, P * M, mask))
+    return plans
 
 
 def _residual_one(pose, intr, point, uv):
@@ -229,10 +285,11 @@ _gps_rj = vmap(jacfwd(_aux(_gps_residual_one), has_aux=True))
 _triple_rj = vmap(jacfwd(_aux(_triple_residual), has_aux=True))
 
 
-def _gps_prior_blocks(problem: BAProblem):
+def _gps_prior_blocks(problem: BAProblem, triple_plan=None):
     """Camera-indexed Gauss-Newton blocks of the GPS / prior / triple terms
     (O(C)): Hg (C, 6, 6) per camera (GPS + pose prior), Ht (T, 3, 6, 3, 6)
-    per triple, and their share of the rhs (6C + 3M,)."""
+    per triple, and their share of the rhs (6C + 3M,); the triples' rhs is
+    summed per camera through `triple_plan` (made here if None)."""
     C, M = problem.n_cameras, problem.n_models
     dev = problem.points.device
     Jg, rg = _gps_rj(problem.poses, problem.gps_pos, problem.gps_weight)
@@ -248,17 +305,11 @@ def _gps_prior_blocks(problem: BAProblem):
     Ht = torch.einsum("trai,trbj->taibj", Jt, Jt)           # (T,3,6,3,6)
     gt = torch.einsum("trai,tr->tai", Jt, rt)               # (T,3,6)
 
+    if triple_plan is None:
+        triple_plan = _triple_plans(problem, False)[0]
     rhs_extra = torch.zeros((6 * C + 3 * M,), dtype=gg.dtype, device=dev)
-    rhs_extra[:6 * C] -= gg.reshape(-1)
-    rhs_extra.index_add_(0, _triple_rows(problem).reshape(-1),
-                         -gt.reshape(-1))
+    rhs_extra[:6 * C] = -(gg + segment_sum(gt, triple_plan)).reshape(-1)
     return Hg, Ht, rhs_extra
-
-
-def _triple_rows(problem: BAProblem):
-    """(T, 3, 6) rows of the triples' cameras in the reduced system."""
-    return 6 * problem.gps_triple[:, :, None] + torch.arange(
-        6, device=problem.gps_triple.device)
 
 
 def _inv3x3(A, eps=1e-12):
@@ -298,24 +349,19 @@ def _chol3x3(A, eps=1e-12):
                         torch.stack([l31, l32, l33], dim=-1)], dim=-2)
 
 
-def _bin_sum(values, index, n):
-    """sum of values (..., *tail) into n bins by a flat index (index_add_)."""
-    tail = values.shape[index.dim():]
-    out = torch.zeros((n, *tail), dtype=values.dtype, device=values.device)
-    return out.index_add_(0, index.reshape(-1),
-                          values.reshape(-1, *tail))
-
-
-def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig):
+def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig,
+                          plans: Optional[BAPlans] = None):
     """Linearize the tracks into the reduced camera system.
 
     Returns (S, rhs, aux): the undamped, unmasked (6C+3M)^2 system, its
     right-hand side, and the per-track tensors back-substitution needs.
-    Every term is a sum over tracks.
+    Every term is a sum over tracks, through `plans` (made here if None).
     """
     C, M, P = problem.n_cameras, problem.n_models, problem.n_points
     D = 6 * C + 3 * M
     dtype, dev = problem.points.dtype, problem.points.device
+    if plans is None:
+        plans = make_plans(problem, cfg._replace(cg_iterations=0), False)
 
     r, Jpo, Jin, Jpt = _obs_jacobians(problem)
     rw = robust_weights(r, cfg.huber_delta)[..., None]
@@ -324,13 +370,12 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig):
     Jin = Jin * rw[..., None]
     Jpt = Jpt * rw[..., None]
 
-    cam = problem.track_cam                       # (P,V)
-    model = problem.cam_model[cam]                # (P,V)
-
     # ---- gradient ----
     g_cam = torch.cat([
-        _bin_sum(torch.einsum("pvri,pvr->pvi", Jpo, r), cam, C).reshape(-1),
-        _bin_sum(torch.einsum("pvri,pvr->pvi", Jin, r), model, M).reshape(-1)])
+        segment_sum(torch.einsum("pvri,pvr->pvi", Jpo, r),
+                    plans.cam).reshape(-1),
+        segment_sum(torch.einsum("pvri,pvr->pvi", Jin, r),
+                    plans.model).reshape(-1)])
     g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)   # (P,3)
 
     # ---- point blocks ----
@@ -345,9 +390,12 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig):
     Hpp_inv = _inv3x3(Hpp_d)
 
     # ---- camera block-diagonals ----
-    Hcc_pose = _bin_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jpo), cam, C)
-    Hcc_intr = _bin_sum(torch.einsum("pvri,pvrj->pvij", Jin, Jin), model, M)
-    Hcc_pi = _bin_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jin), cam, C)
+    Hcc_pose = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jpo),
+                           plans.cam)
+    Hcc_intr = segment_sum(torch.einsum("pvri,pvrj->pvij", Jin, Jin),
+                           plans.model)
+    Hcc_pi = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jin),
+                         plans.cam)
 
     S = torch.zeros((D, D), dtype=dtype, device=dev)
     ar6 = torch.arange(6, device=dev)
@@ -355,6 +403,7 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig):
     pose_rows = 6 * torch.arange(C, device=dev)[:, None] + ar6     # (C,6)
     intr_rows = 6 * C + 3 * torch.arange(M, device=dev)[:, None] + ar3
     pi_cols = 6 * C + 3 * problem.cam_model[:, None] + ar3         # (C,3)
+    # each (row, col) below is written once, into zeros: exact in any order
     S.index_put_((pose_rows[:, :, None], pose_rows[:, None, :]), Hcc_pose,
                  accumulate=True)
     S.index_put_((intr_rows[:, :, None], intr_rows[:, None, :]), Hcc_intr,
@@ -370,13 +419,11 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig):
     W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) \
         * problem.point_mut[:, None, None, None]
     # Hpp_inv = L L^T; per point, fold its views into per-camera / per-model
-    # factors G (P, C, 6, 3) and (P, M, 3, 3) — index_add_ over (point,
+    # factors G (P, C, 6, 3) and (P, M, 3, 3) — segment sums over (point,
     # camera) bins — so the Schur fill is one G G^T product
     U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))         # (P,V,9,3)
-    p_idx = torch.arange(P, device=dev)[:, None]
-    G_pose = _bin_sum(U[:, :, :6], p_idx * C + cam, P * C).reshape(P, C, 6, 3)
-    G_intr = _bin_sum(U[:, :, 6:], p_idx * M + model, P * M).reshape(
-        P, M, 3, 3)
+    G_pose = segment_sum(U[:, :, :6], plans.point_cam).reshape(P, C, 6, 3)
+    G_intr = segment_sum(U[:, :, 6:], plans.point_model).reshape(P, M, 3, 3)
     Gp = G_pose.permute(1, 2, 0, 3).reshape(6 * C, 3 * P)
     Gi = G_intr.permute(1, 2, 0, 3).reshape(3 * M, 3 * P)
     G = torch.cat([Gp, Gi], dim=0)                                    # (D,3P)
@@ -385,14 +432,15 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig):
     # ---- rhs: -(g_cam - E Hpp_inv g_pt) ----
     y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
     corr = torch.einsum("pvij,pj->pvi", W, y)                         # (P,V,9)
-    rhs = -g_cam + torch.cat([_bin_sum(corr[..., :6], cam, C).reshape(-1),
-                              _bin_sum(corr[..., 6:], model, M).reshape(-1)])
+    rhs = -g_cam + torch.cat([
+        segment_sum(corr[..., :6], plans.cam).reshape(-1),
+        segment_sum(corr[..., 6:], plans.model).reshape(-1)])
     aux = {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
     return S, rhs, aux
 
 
 def solve_reduced(S, rhs, problem: BAProblem, lam, cfg: LMConfig,
-                  priors: bool = True):
+                  priors: bool = True, plans: Optional[BAPlans] = None):
     """Add the prior terms' blocks (when `priors`), damp + freeze-mask the
     reduced system and solve it by Cholesky.
 
@@ -400,14 +448,19 @@ def solve_reduced(S, rhs, problem: BAProblem, lam, cfg: LMConfig,
     which the LM loop rejects, as in the JAX package."""
     if priors:
         C = problem.n_cameras
-        Hg, Ht, rhs_extra = _gps_prior_blocks(problem)
+        if plans is None:
+            plans = make_plans(problem, cfg._replace(cg_iterations=0), True)
+        Hg, Ht, rhs_extra = _gps_prior_blocks(problem, plans.triple)
         pose_rows = 6 * torch.arange(C, device=S.device)[:, None] \
             + torch.arange(6, device=S.device)
+        # one block per camera, written once: exact in any order
         S = S.index_put((pose_rows[:, :, None], pose_rows[:, None, :]), Hg,
                         accumulate=True)
-        trip = _triple_rows(problem)                           # (T,3,6)
-        S = S.index_put((trip[:, :, :, None, None],
-                         trip[:, None, None, :, :]), Ht, accumulate=True)
+        # the triples' (camera a, camera b) blocks collide on shared
+        # cameras: summed per camera pair, then added as one (6C, 6C) block
+        Hab = segment_sum(Ht.permute(0, 1, 3, 2, 4), plans.pair)  # (C*C,6,6)
+        S[:6 * C, :6 * C] += Hab.reshape(C, C, 6, 6).permute(
+            0, 2, 1, 3).reshape(6 * C, 6 * C)
         rhs = rhs + rhs_extra
     diag = torch.diagonal(S)
     S = S + torch.diag_embed(lam * torch.clamp(diag, min=1e-12) + 1e-10)
@@ -444,7 +497,8 @@ def backsub_points(aux, d_cam, problem: BAProblem):
 CG_POLL = 8   # CG iterations between host reads of the on-device flag
 
 
-def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
+def _track_terms(problem: BAProblem, lam, cfg: LMConfig,
+                 plans: Optional[BAPlans] = None):
     """Per-track tensors and rhs of the PCG path: everything O(P*V), no
     (D, D) matrix and no O(P*C) factor.
 
@@ -455,8 +509,9 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
     needs.  Masked slots carry zero Jacobians and residuals, so they add
     nothing to any camera sum.
     """
-    C, M = problem.n_cameras, problem.n_models
     dtype, dev = problem.points.dtype, problem.points.device
+    if plans is None:
+        plans = make_plans(problem, cfg, False)
 
     r, Jpo, Jin, Jpt = _obs_jacobians(problem)
     rw = robust_weights(r, cfg.huber_delta)[..., None]
@@ -465,8 +520,6 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
     Jin = Jin * rw[..., None]
     Jpt = Jpt * rw[..., None]
 
-    cam = problem.track_cam                       # (P,V)
-    model = problem.cam_model[cam]                # (P,V)
     pm = problem.point_mut
 
     # ---- point blocks ----
@@ -488,16 +541,18 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
     y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
     rv = torch.einsum("pvij,pj->pvi", W, y) \
         - torch.einsum("pvri,pvr->pvi", Jc, r)                      # (P,V,9)
-    rhs = torch.cat([_bin_sum(rv[..., :6], cam, C).reshape(-1),
-                     _bin_sum(rv[..., 6:], model, M).reshape(-1)])
+    rhs = torch.cat([segment_sum(rv[..., :6], plans.cam).reshape(-1),
+                     segment_sum(rv[..., 6:], plans.model).reshape(-1)])
 
     # ---- block-Jacobi pieces of S (Hcc minus Schur part, per view) ----
-    blk_pose = _bin_sum(
+    blk_pose = segment_sum(
         torch.einsum("pvri,pvrj->pvij", Jpo, Jpo)
-        - torch.einsum("pvik,pvjk->pvij", U[:, :, :6], U[:, :, :6]), cam, C)
-    blk_intr = _bin_sum(
+        - torch.einsum("pvik,pvjk->pvij", U[:, :, :6], U[:, :, :6]),
+        plans.cam)
+    blk_intr = segment_sum(
         torch.einsum("pvri,pvrj->pvij", Jin, Jin)
-        - torch.einsum("pvik,pvjk->pvij", U[:, :, 6:], U[:, :, 6:]), model, M)
+        - torch.einsum("pvik,pvjk->pvij", U[:, :, 6:], U[:, :, 6:]),
+        plans.model)
 
     terms = {"Jc": Jc, "W": W, "Hpp_inv": Hpp_inv,
              "blk_pose": blk_pose, "blk_intr": blk_intr}
@@ -506,7 +561,8 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig):
 
 
 def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
-              tol_rel=None, prior_blocks=None, reduce=None):
+              tol_rel=None, prior_blocks=None, reduce=None,
+              plans: Optional[BAPlans] = None):
     """Block-Jacobi PCG on the damped, freeze-masked reduced system.
 
     The matvec applies S = Hcc - E Hpp^-1 E^T track by track, plus the
@@ -522,9 +578,11 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
     check without a host sync per iteration.  A preconditioner block that
     fails its Cholesky yields a NaN step, which the LM loop rejects.
     `terms` and `rhs` are reduced already; `reduce` sums the track part
-    of each matvec.
+    of each matvec.  Camera sums go through `plans` (made here if None).
     """
     C, M = problem.n_cameras, problem.n_models
+    if plans is None:
+        plans = make_plans(problem, cfg, prior_blocks is not None)
     dtype, dev = rhs.dtype, rhs.device
     free = torch.cat([problem.pose_mut.repeat_interleave(6),
                       problem.intr_mut.repeat_interleave(3)])
@@ -532,13 +590,12 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
     if prior_blocks is not None:
         Hg, Ht = prior_blocks
         blk_pose = blk_pose + Hg
-        trip = _triple_rows(problem)                                # (T,3,6)
-        T = trip.shape[0]
+        T = Ht.shape[0]
         # the triples' diagonal: Ht[t, a, i, a, i] at row 6 triple[t, a] + i
-        tdiag = torch.zeros_like(rhs).index_add_(
-            0, trip.reshape(-1),
+        tdiag = torch.zeros_like(rhs)
+        tdiag[:6 * C] = segment_sum(
             torch.diagonal(Ht.reshape(T, 18, 18), dim1=-2,
-                           dim2=-1).reshape(-1))
+                           dim2=-1).reshape(T, 3, 6), plans.triple).reshape(-1)
     diag_p = torch.diagonal(blk_pose, dim1=-2, dim2=-1)             # (C,6)
     diag_i = torch.diagonal(blk_intr, dim1=-2, dim2=-1)             # (M,3)
     diag_s = torch.cat([diag_p.reshape(-1), diag_i.reshape(-1)])
@@ -560,19 +617,18 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
         b3 = torch.einsum("pjk,pk->pj", Hpp_inv,
                           torch.einsum("pvik,pvi->pk", W, xv))
         z9 = u - torch.einsum("pvik,pk->pvi", W, b3)
-        zc = _bin_sum(z9, cam, C)                                     # (C,9)
+        zc = segment_sum(z9, plans.cam)                               # (C,9)
         # model ids are a function of the camera id: fold the camera rows
         # into model bins
         Sx = torch.cat([zc[:, :6].reshape(-1),
-                        _bin_sum(zc[:, 6:], cam_model, M).reshape(-1)])
+                        segment_sum(zc[:, 6:], plans.cam_model).reshape(-1)])
         if reduce is not None:
             Sx = reduce(Sx)
         if prior_blocks is not None:
             xp = xm[:6 * C].reshape(C, 6)
             Sxp = torch.einsum("cij,cj->ci", Hg, xp)
             tx = torch.einsum("taibj,tbj->tai", Ht, xp[problem.gps_triple])
-            Sxp = Sxp.index_add_(0, problem.gps_triple.reshape(-1),
-                                 tx.reshape(-1, 6))
+            Sxp = Sxp + segment_sum(tx, plans.triple)
             Sx[:6 * C] += Sxp.reshape(-1)
         Sx = Sx + dampv * xm
         return Sx * free + (1.0 - free) * x
@@ -626,19 +682,22 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
 
 
 def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
-                           tol_rel=None, priors: bool = True, reduce=None):
+                           tol_rel=None, priors: bool = True, reduce=None,
+                           plans: Optional[BAPlans] = None):
     C, M = problem.n_cameras, problem.n_models
-    terms, rhs, aux = _track_terms(problem, lam, cfg)
+    if plans is None:
+        plans = make_plans(problem, cfg, priors)
+    terms, rhs, aux = _track_terms(problem, lam, cfg, plans)
     if reduce is not None:
         rhs, terms["blk_pose"], terms["blk_intr"] = _reduce_cat(
             reduce, rhs, terms["blk_pose"], terms["blk_intr"])
     prior_blocks = None
     if priors:
-        Hg, Ht, rhs_extra = _gps_prior_blocks(problem)
+        Hg, Ht, rhs_extra = _gps_prior_blocks(problem, plans.triple)
         prior_blocks = (Hg, Ht)
         rhs = rhs + rhs_extra
     d_cam = _cg_solve(problem, terms, rhs, lam, cfg, tol_rel=tol_rel,
-                      prior_blocks=prior_blocks, reduce=reduce)
+                      prior_blocks=prior_blocks, reduce=reduce, plans=plans)
     d_pt = backsub_points(aux, d_cam, problem)
     d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
     d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
@@ -646,17 +705,23 @@ def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
 
 
 def _assemble_and_solve(problem: BAProblem, lam, cfg: LMConfig,
-                        tol_rel=None, priors: bool = True, reduce=None):
+                        tol_rel=None, priors: bool = True, reduce=None,
+                        plans: Optional[BAPlans] = None):
     """One LM step; `priors` False skips the prior terms (all weights
-    zero); `reduce` sums the track partials over the ranks."""
+    zero); `reduce` sums the track partials over the ranks; `plans` are
+    the problem's (made here if None)."""
+    if plans is None:
+        plans = make_plans(problem, cfg, priors)
     if cfg.cg_iterations > 0:
         return _assemble_and_solve_cg(problem, lam, cfg, tol_rel=tol_rel,
-                                      priors=priors, reduce=reduce)
+                                      priors=priors, reduce=reduce,
+                                      plans=plans)
     C, M = problem.n_cameras, problem.n_models
-    S, rhs, aux = partial_camera_system(problem, lam, cfg)
+    S, rhs, aux = partial_camera_system(problem, lam, cfg, plans)
     if reduce is not None:
         S, rhs = _reduce_cat(reduce, S, rhs)
-    d_cam = solve_reduced(S, rhs, problem, lam, cfg, priors=priors)
+    d_cam = solve_reduced(S, rhs, problem, lam, cfg, priors=priors,
+                          plans=plans)
     d_pt = backsub_points(aux, d_cam, problem)
     d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
     d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
@@ -677,12 +742,14 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig(), reduce=None):
     forcing = cfg.cg_forcing and cfg.cg_iterations > 0
     eta = cfg.cg_eta0 if forcing else cfg.cg_tol
     priors = has_priors(problem)
+    # the index sets are the same every iteration: one set of plans
+    plans = make_plans(problem, cfg, priors)
     it = 0
     converged = False
     while it < cfg.max_iterations:
         d_pose, d_intr, d_pt = _assemble_and_solve(
             problem, lam, cfg, tol_rel=eta if forcing else None,
-            priors=priors, reduce=reduce)
+            priors=priors, reduce=reduce, plans=plans)
         cand = problem._replace(poses=problem.poses + d_pose,
                                 intrs=problem.intrs + d_intr,
                                 points=problem.points + d_pt)

@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .segsum import make_plan, segment_sum
+
 # the fine stage's padded rows a block: cells x the widest cell's rows
 # (at D = 128, 1 GiB of f32 and as much again for the k-means++ step)
 MAX_BLOCK_ROWS = 1 << 21
@@ -90,10 +92,13 @@ def _kmeanspp_init(desc, generator, k: int, m):
 
 
 def _lloyd(desc, m, cent, iters: int, n_rows):
-    """Lloyd iterations of each batch row: desc (B, N, D), m (B, N), cent
-    (B, k, D), n_rows (B,) the row count an empty cluster re-seeds from.
-    Empty clusters re-seed deterministically from data rows
-    desc[(arange(k) * 7919) % n_rows] (fbow keeps k fixed)."""
+    """Lloyd iterations of each batch row: desc (B, N, D), m (B, N) 0/1
+    row mask, cent (B, k, D), n_rows (B,) the row count an empty cluster
+    re-seeds from.  Empty clusters re-seed deterministically from data
+    rows desc[(arange(k) * 7919) % n_rows] (fbow keeps k fixed).  Each
+    iteration's cluster sums go through a segment plan of its assignment
+    (ops/segsum: one fixed order, no atomics on the card); the counts are
+    the plan's segment lengths."""
     B, N, D = desc.shape
     k = cent.shape[1]
     dev = desc.device
@@ -101,15 +106,12 @@ def _lloyd(desc, m, cent, iters: int, n_rows):
     seed_rows = (torch.arange(k, device=dev) * 7919)[None, :] \
         % n_rows.to(dev)[:, None]
     reseed = desc[b[:, None], seed_rows].reshape(B * k, D)
-    wd = (desc * m[..., None]).reshape(B * N, D)
-    mf = m.reshape(B * N)
+    keep = m > 0
     offs = (b * k)[:, None]
     for _ in range(iters):
-        seg = (_assign(desc, cent) + offs).reshape(B * N)
-        sums = torch.zeros((B * k, D), dtype=desc.dtype,
-                           device=dev).index_add_(0, seg, wd)
-        counts = torch.zeros(B * k, dtype=desc.dtype,
-                             device=dev).index_add_(0, seg, mf)
+        plan = make_plan(_assign(desc, cent) + offs, B * k, keep)
+        sums = segment_sum(desc, plan)
+        counts = (plan.off[1:] - plan.off[:-1]).to(desc.dtype)
         new = sums / torch.clamp_min(counts, 1e-6)[:, None]
         cent = torch.where(counts[:, None] > 0.5, new, reseed).reshape(B, k, D)
     return cent
@@ -181,6 +183,7 @@ def train_vocabulary(desc, generator: Optional[torch.Generator] = None,
         if mask is None else mask.to(dev).bool()
     # masked rows go to a sentinel cell past the last one
     cell = torch.where(valid, _assign(desc, coarse), branch1)
+    # integer counts: exact in any order
     n_cells = torch.zeros(branch1 + 1, dtype=torch.long, device=dev
                           ).index_add_(0, cell, torch.ones_like(cell))
     n_host = n_cells[:branch1].cpu().numpy()
@@ -220,6 +223,7 @@ def transform(voc: Vocabulary, desc, mask=None):
     words = c_idx * voc.fine.shape[1] + f_idx
     w = torch.ones(desc.shape[0], dtype=torch.float32, device=desc.device) \
         if mask is None else mask.to(desc.device).float()
+    # 0/1 counts, exact in f32 below 2^24 in any order
     counts = torch.zeros(voc.n_words, dtype=torch.float32,
                          device=desc.device).index_add_(0, words, w)
     words = torch.where(w > 0, words, -1).to(torch.int32)
@@ -291,6 +295,7 @@ def similarity_chunked(word_lists, n_words: int,
     ki, kw = key // n_words, key % n_words
     # pass 1: document frequency -> stop words + idf
     one = torch.ones_like(kw, dtype=torch.float32)
+    # 0/1 counts, exact in f32 below 2^24 in any order
     doc_freq = torch.zeros(n_words, dtype=torch.float32,
                            device=device).index_add_(0, kw, one)
     keep = doc_freq <= max(stop_word_frac * n_words, 1.0)

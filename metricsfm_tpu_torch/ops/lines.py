@@ -4,13 +4,15 @@ Counterpart of metricsfm_tpu/ops/lines.py (re-design of the reference's
 line utilities, SfM/src/utils/lsd.{h,cc}, houghlines.{h,cpp},
 local_orientation.{h,cc}: linked-in capability for line-feature work,
 unused in the default pipelines): gradient orientation field, level-line
-support masks, and a Hough accumulator filled by scatter-add voting.
+support masks, and a Hough accumulator filled by segment-sum voting.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from .segsum import make_plan, segment_sum
 
 
 def _linspace(start, stop, num, endpoint, like):
@@ -54,9 +56,9 @@ def hough_lines(edge_mask, weights=None, n_theta: int = 180,
 
     Every edge pixel votes into the two rho bins around its line distance
     with linear-interpolation weights (houghlines.cpp's scatter voting);
-    the upper bin is clipped to n_rho - 1.  Votes are summed in f64 and
-    rounded to f32 once, so the accumulator does not depend on the order
-    in which the adds land.
+    the upper bin is clipped to n_rho - 1.  The votes are summed in f64 by
+    one segment sum (ops/segsum: a fixed order, no atomics on the card)
+    and rounded to f32 once.
     Returns (acc (n_theta, n_rho), thetas, rhos).
     """
     H, W = edge_mask.shape
@@ -81,11 +83,10 @@ def hough_lines(edge_mask, weights=None, n_theta: int = 180,
     frac = idx - i0
     i1 = torch.clamp(i0 + 1, 0, n_rho - 1)
     base = torch.arange(n_theta, device=dev)[:, None] * n_rho
-    acc = torch.zeros(n_theta * n_rho, dtype=torch.float64, device=dev)
-    acc.index_add_(0, (base + i0).reshape(-1),
-                   (wf * (1 - frac)).reshape(-1).to(torch.float64))
-    acc.index_add_(0, (base + i1).reshape(-1),
-                   (wf * frac).reshape(-1).to(torch.float64))
+    votes = torch.stack([wf * (1 - frac), wf * frac])            # (2, T, E)
+    acc = segment_sum(votes.to(torch.float64),
+                      make_plan(torch.stack([base + i0, base + i1]),
+                                n_theta * n_rho))
     return acc.to(torch.float32).reshape(n_theta, n_rho), thetas, rhos
 
 

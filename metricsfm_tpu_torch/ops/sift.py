@@ -12,11 +12,11 @@ leading image-batch axis in place of jit(vmap):
   neighbourhood gather + a closed-form 3x3 solve, offsets clamped to +-1.
 * Orientation + descriptor from integer-aligned (P, P) gradient patches at
   each keypoint's own level; every patch pixel contributes with tent
-  (orientation) / trilinear (descriptor) weights.  A tent weight is
-  nonzero on exactly two adjacent bins, so the histograms are built with
-  scatter-adds of those two (or 2x2x2) weights — the same sums as the JAX
-  package's dense (pixels x bins) weight products, without materializing
-  them.
+  (orientation) / trilinear (descriptor) weights.  The histograms are the
+  JAX package's batched products of the pixels with their dense (pixels x
+  bins) tent weights: cuBLAS sums them in a fixed order, so two runs give
+  the same bits (a scatter-add of the two nonzero weights, the earlier
+  form, summed through atomics in a varying order on the card).
 * Up to 2 orientation slots per detection (vlfeat 80%-peak rule).
 
 Output coordinates are centered at the principal point (w/2, h/2), the
@@ -258,12 +258,17 @@ def orientation_peaks(mag, ang, dy, dx, sigma_oct, cfg: SiftConfig,
     w = torch.exp(-r2 / (2.0 * sig_w ** 2)) * (r2 <= (3.0 * sig_w) ** 2)
     contrib = (mag * w).reshape(K, P * P)
     binf = ((ang + math.pi) / (2 * math.pi) * n_bins).reshape(K, P * P)
-    b0f = torch.floor(binf)
-    fr = binf - b0f
-    b0 = b0f.to(torch.int64)
-    hist = torch.zeros((K, n_bins), dtype=mag.dtype, device=mag.device)
-    hist.scatter_add_(1, b0 % n_bins, contrib * (1.0 - fr))
-    hist.scatter_add_(1, (b0 + 1) % n_bins, contrib * fr)
+    bins = torch.arange(n_bins, dtype=torch.float32, device=mag.device)
+    # circular tent weights (K, P^2, nb): 1 - min(|b - binf|, nb - |.|)
+    d = torch.abs(binf[:, :, None] - bins)
+    tri = torch.clamp(1.0 - torch.minimum(d, n_bins - d), min=0.0)
+    hist = torch.bmm(contrib[:, None, :], tri)[:, 0]
+    return _peaks_of(hist, cfg, n_bins)
+
+
+def _peaks_of(hist, cfg: SiftConfig, n_bins: int):
+    """orientation_peaks after its (K, n_bins) histogram: box-smooth x2,
+    the two peaks, parabolic refinement."""
     for _ in range(2):
         hist = (torch.roll(hist, 1, dims=1) + hist
                 + torch.roll(hist, -1, dims=1)) / 3.0
@@ -297,7 +302,8 @@ def descriptors_from_patches(mag, ang, dy, dx, sigma_oct, theta,
                              cfg: SiftConfig):
     """128-D descriptors from (K, P, P) gradient patches for one
     orientation slot: every pixel adds its trilinear (y-bin, x-bin,
-    o-bin) weights.  Returns (K, 128) L2-normalized, clipped, renormalized."""
+    o-bin) weights, as nb batched (nb, P^2) @ (P^2, no) products, one per
+    y-bin.  Returns (K, 128) L2-normalized, clipped, renormalized."""
     K, P, _ = mag.shape
     nb, no = cfg.desc_width, cfg.desc_bins
     ct = torch.cos(theta)[:, None, None]
@@ -313,23 +319,24 @@ def descriptors_from_patches(mag, ang, dy, dx, sigma_oct, theta,
 
     rel = ang - theta[:, None, None]
     ob = torch.remainder(rel / (2 * math.pi) * no, no).reshape(K, P * P)
+    obins = torch.arange(no, dtype=torch.float32, device=mag.device)
+    do = torch.abs(ob[:, :, None] - obins)
+    wo = torch.clamp(1.0 - torch.minimum(do, no - do), min=0.0)  # (K,P^2,no)
+
     bx = (ux + nb / 2.0 - 0.5).reshape(K, P * P)
     by = (uy + nb / 2.0 - 0.5).reshape(K, P * P)
+    sbins = torch.arange(nb, dtype=torch.float32, device=mag.device)
+    wx = torch.clamp(1.0 - torch.abs(bx[:, :, None] - sbins), min=0.0)
+    rows = []
+    for ybin in range(nb):
+        wyb = torch.clamp(1.0 - torch.abs(by - float(ybin)), min=0.0) * c
+        rows.append(torch.bmm((wx * wyb[:, :, None]).transpose(1, 2), wo))
+    desc = torch.stack(rows, dim=1).reshape(K, nb * nb * no)
+    return _normalized(desc, cfg)
 
-    def two_bins(v):
-        v0 = torch.floor(v)
-        f = v - v0
-        v0 = v0.to(torch.int64)
-        return ((v0, 1.0 - f), (v0 + 1, f))
 
-    desc = torch.zeros((K, nb * nb * no), dtype=mag.dtype, device=mag.device)
-    for ybin, wy in two_bins(by):
-        for xbin, wx in two_bins(bx):
-            inside = (ybin >= 0) & (ybin < nb) & (xbin >= 0) & (xbin < nb)
-            cell = (ybin.clamp(0, nb - 1) * nb + xbin.clamp(0, nb - 1)) * no
-            wyx = torch.where(inside, c * wy * wx, 0.0)
-            for obin, wo in two_bins(ob):
-                desc.scatter_add_(1, cell + obin % no, wyx * wo)
+def _normalized(desc, cfg: SiftConfig):
+    """L2-normalize, clip at cfg.clip, renormalize (K, 128) descriptors."""
     desc = desc / torch.clamp(torch.linalg.norm(desc, dim=1, keepdim=True),
                               min=1e-12)
     desc = torch.clamp(desc, max=cfg.clip)

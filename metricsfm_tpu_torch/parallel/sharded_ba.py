@@ -8,6 +8,11 @@ reference's single-threaded Ceres DENSE_SCHUR, optimizer.cc:47):
   camera system is a sum over tracks, so each rank computes its partial
   and one all-reduce completes it: ba/lm.py's functions with the mesh's
   `psum` as their `reduce`, not a second LM.
+* Each rank's solve_lm makes the segment plans (ops/segsum) of its own
+  block, so its partial sums run in a fixed order and a rank repeats its
+  run bit for bit, GPS triples included.  Against one process the split
+  still rounds: each rank rounds its half of a sum before the all-reduce
+  adds the halves.
 * Point elimination and back-substitution stay local to each rank.
 * The reduced camera solve (dense Cholesky, or PCG with one (D,)
   all-reduce per CG iteration) is replicated on every rank.

@@ -10,9 +10,9 @@ closest analogue is the CMVS clustering of <= 500 cameras for dense work
 
 The JAX package pads every submap to one (Cp, Pp) shape and solves them as
 one vmapped batch.  Here each submap is its own unpadded BAProblem, solved
-by its own LM run (ba/lm.solve_lm) one after another: the same semantics
-as the vmapped batch, where every submap keeps its own lambda and its own
-accept / reject decisions.  Submaps are not merged into one block-diagonal
+by its own LM run (ba/lm.solve_lm, which makes the submap's own segment
+plans) one after another: the same semantics as the vmapped batch, where
+every submap keeps its own lambda and its own accept / reject decisions.  Submaps are not merged into one block-diagonal
 problem, which would share one lambda.  A submap's `iterations` is the sum
 over its whole solve.  With a mesh of ranks the submaps are dealt to the
 ranks in contiguous blocks (no collective inside a solve), and the solved

@@ -48,6 +48,7 @@ MODULES = [
     "metricsfm_tpu_torch.parallel.mesh",
     "metricsfm_tpu_torch.parallel.sharded_ba",
     "metricsfm_tpu_torch.parallel.sharded_matching",
+    "metricsfm_tpu_torch.ops.segsum",
 ]
 
 

@@ -1,0 +1,312 @@
+"""The fixed-order segment sum (ops/segsum) and the sums that go through it.
+
+On the CPU `segment_sum` is its plain version (a `segment_reduce` over the
+plan's sorted slots, one slot after another in the values' dtype); the
+CUDA kernel (ops/csrc/segsum.cu) runs only on the card
+(`test_kernel_on_the_card`, and `chip_smoke.py` phase 14).  The plain
+version is held to an f64 `index_add_` of the same slots within 1e-12 of
+each bin's sum of |values| in f64, and bit for bit to the CPU's f32
+`index_add_` (the order the port summed in before, and the order of XLA's
+CPU scatter-add in the JAX package).  A source scan keeps every remaining
+scatter-add of the port on a list of sums that are exact in any order: a
+new atomic float sum fails it.
+"""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from metricsfm_tpu_torch.ops import segsum
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "metricsfm_tpu_torch")
+
+
+def _index_add(values, bins, n_bins, mask=None):
+    """The yardstick: an index_add_ of the kept rows in values' dtype."""
+    v = values.reshape(bins.numel(), int(np.prod(values.shape[bins.dim():])))
+    b = bins.reshape(-1)
+    if mask is not None:
+        keep = mask.reshape(-1)
+        v, b = v[keep], b[keep]
+    out = torch.zeros((n_bins, v.shape[1]), dtype=values.dtype)
+    return out.index_add_(0, b, v)
+
+
+def _check_sum(values, bins, n_bins, mask=None):
+    """f32 values: bit-equal to the f32 index_add_; the same values in f64:
+    within 1e-12 of each bin's sum of |values| of the f64 index_add_."""
+    plan = segsum.make_plan(bins, n_bins, mask)
+    got = segsum.segment_sum(values, plan).reshape(n_bins,
+                                                    values.shape[-1])
+    assert got.dtype == values.dtype
+    torch.testing.assert_close(got, _index_add(values, bins, n_bins, mask),
+                               rtol=0, atol=0)
+    v64 = values.double()
+    got64 = segsum.segment_sum(v64, plan).reshape(n_bins, values.shape[-1])
+    want64 = _index_add(v64, bins, n_bins, mask)
+    absmass = _index_add(v64.abs(), bins, n_bins, mask)
+    err = (got64 - want64).abs()
+    assert bool((err <= 1e-12 * absmass + 1e-300).all()), float(err.max())
+    return got, want64
+
+
+def _skewed_bins(rng, n_bins, n):
+    """Bins of n slots: most in one bin, some in a few others, many bins
+    empty."""
+    if n_bins == 1:
+        return np.zeros(n, np.int64)
+    heavy = rng.integers(0, n_bins)
+    b = rng.integers(0, n_bins, n)
+    b[rng.uniform(size=n) < 0.7] = heavy
+    return b
+
+
+@pytest.mark.parametrize("K", [1, 3, 6, 9, 18, 27, 36, 81, 128])
+def test_plain_sum_matches_index_add_at_call_site_widths(K):
+    """The widths the port's call sites use, on skewed bins with empty
+    ones, a tail of several dims and a masked share of the slots."""
+    rng = np.random.default_rng(K)
+    n_bins, n = 37, 900
+    bins = torch.from_numpy(_skewed_bins(rng, n_bins, n)).reshape(30, 30)
+    values = torch.from_numpy(
+        rng.normal(size=(30, 30, K)).astype(np.float32) * 10.0)
+    mask = torch.from_numpy(rng.uniform(size=(30, 30)) < 0.8)
+    _check_sum(values, bins, n_bins)
+    got, _ = _check_sum(values, bins, n_bins, mask)
+    empty = np.setdiff1d(np.arange(n_bins), bins.numpy()[mask.numpy()])
+    assert (got[torch.from_numpy(empty)] == 0).all()
+
+
+@settings(max_examples=60, deadline=None)
+@given(lengths=st.lists(st.one_of(st.just(0), st.just(1),
+                                  st.integers(0, 40),
+                                  st.integers(200, 3000)),
+                        min_size=1, max_size=24),
+       K=st.integers(1, 128), seed=st.integers(0, 2 ** 31 - 1))
+def test_plain_sum_matches_index_add(lengths, K, seed):
+    """Any bin lengths (empty, single, skewed), any width from 1 to 128,
+    slots in a shuffled order, values over six orders of magnitude."""
+    rng = np.random.default_rng(seed)
+    bins = np.repeat(np.arange(len(lengths)), lengths)
+    rng.shuffle(bins)
+    values = rng.normal(size=(len(bins), K)).astype(np.float32) \
+        * rng.choice([1e-3, 1.0, 1e3])
+    _check_sum(torch.from_numpy(values), torch.from_numpy(bins),
+               len(lengths))
+
+
+def test_plan_is_a_stable_sort_with_offsets():
+    """perm holds the kept slots sorted by bin, in slot order within a bin,
+    then the dropped slots in slot order; off[s + 1] - off[s] counts bin s."""
+    rng = np.random.default_rng(0)
+    n_bins, n = 11, 500
+    bins = rng.integers(0, n_bins, n)
+    bins[::7] = 4                        # one heavy bin
+    bins[bins == 9] = 3                  # one empty bin
+    keep = rng.uniform(size=n) < 0.75
+    plan = segsum.make_plan(torch.from_numpy(bins), n_bins,
+                            torch.from_numpy(keep))
+    perm, off = plan.perm.numpy(), plan.off.numpy()
+    assert plan.perm.dtype == torch.int32 and plan.off.dtype == torch.int32
+    assert sorted(perm.tolist()) == list(range(n))
+    kept = np.nonzero(keep)[0]
+    want = kept[np.argsort(bins[kept], kind="stable")]
+    np.testing.assert_array_equal(perm[:len(kept)], want)
+    np.testing.assert_array_equal(perm[len(kept):], np.nonzero(~keep)[0])
+    np.testing.assert_array_equal(
+        np.diff(off), np.bincount(bins[kept], minlength=n_bins))
+    assert off[0] == 0 and off[-1] == len(kept) and off[9 + 1] == off[9]
+    assert plan.n_slots == n and plan.n_bins == n_bins
+
+
+def test_empty_plans():
+    """No slots, no bins, and every slot dropped."""
+    none = segsum.make_plan(torch.zeros(0, dtype=torch.int64), 5)
+    assert (segsum.segment_sum(torch.ones(0, 3), none) == 0).all()
+    assert segsum.segment_sum(torch.ones(0, 3), none).shape == (5, 3)
+    nobins = segsum.make_plan(torch.zeros(0, dtype=torch.int64), 0)
+    assert segsum.segment_sum(torch.ones(0, 2), nobins).shape == (0, 2)
+    dropped = segsum.make_plan(torch.tensor([1, 7]), 3,
+                               torch.tensor([False, False]))
+    assert (segsum.segment_sum(torch.ones(2, 4), dropped) == 0).all()
+
+
+def test_strided_values_are_read_in_place():
+    """A column slice of a wider tensor (BA's U[:, :, :6]) sums as its
+    copy does."""
+    rng = np.random.default_rng(1)
+    U = torch.from_numpy(rng.normal(size=(40, 5, 9, 3)).astype(np.float32))
+    bins = torch.from_numpy(rng.integers(0, 6, (40, 5)))
+    plan = segsum.make_plan(bins, 6)
+    for part in (U[:, :, :6], U[:, :, 6:]):
+        torch.testing.assert_close(segsum.segment_sum(part, plan),
+                                   segsum.segment_sum(part.contiguous(), plan),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bins, mask", [
+    (torch.tensor([0, 3, 1]), None),
+    (torch.tensor([0, -1, 1]), None),
+    (torch.tensor([[0, 2], [5, 1]]), torch.tensor([[True, True],
+                                                   [True, False]])),
+])
+def test_out_of_range_bin_raises(bins, mask):
+    with pytest.raises(IndexError, match="outside"):
+        segsum.make_plan(bins, 3, mask)
+
+
+def test_masked_bins_are_not_checked():
+    """A dropped slot may carry any bin (padding)."""
+    plan = segsum.make_plan(torch.tensor([0, 99, -5, 2]), 3,
+                            torch.tensor([True, False, False, True]))
+    out = segsum.segment_sum(torch.tensor([1.0, 5.0, 7.0, 2.0]), plan)
+    np.testing.assert_array_equal(out.numpy(), [1.0, 0.0, 2.0])
+
+
+def test_values_must_lead_with_the_plan_shape():
+    plan = segsum.make_plan(torch.zeros((4, 3), dtype=torch.int64), 2)
+    with pytest.raises(ValueError, match="slot shape"):
+        segsum.segment_sum(torch.ones(3, 4), plan)
+
+
+def test_ba_plans_cover_the_problem():
+    """solve_lm's plans: the slots by camera and model with masked slots
+    dropped; the dense path adds the (point, camera) plans, the PCG path
+    does not; triples only with priors, zero-weight triples dropped."""
+    from metricsfm_tpu_torch.ba.lm import LMConfig, make_plans
+    from metricsfm_tpu_torch.utils import synth
+
+    prob = synth.synthetic_ba_problem(6, 64, device="cpu")
+    prob = prob._replace(
+        gps_triple=torch.tensor([[0, 1, 2], [1, 2, 3], [0, 0, 0]]),
+        gps_triple_weight=torch.tensor([[1.0, 1.0], [0.5, 0.0], [0.0, 0.0]]))
+    n_obs = int(prob.track_mask.sum())
+    dense = make_plans(prob, LMConfig(), priors=True)
+    pcg = make_plans(prob, LMConfig(cg_iterations=10), priors=False)
+    assert int(dense.cam.off[-1]) == int(dense.model.off[-1]) == n_obs
+    np.testing.assert_array_equal(
+        torch.diff(dense.cam.off).numpy(),
+        np.bincount(prob.track_cam[prob.track_mask].numpy(), minlength=6))
+    assert dense.point_cam.n_bins == prob.n_points * 6
+    assert pcg.point_cam is None and pcg.triple is None and pcg.pair is None
+    assert int(dense.triple.off[-1]) == 6 and int(dense.pair.off[-1]) == 18
+
+
+# -- the atomic scatters that remain ------------------------------------------
+
+SCATTERS = {"index_add_", "index_add", "scatter_add_", "scatter_add",
+            "index_put_", "index_put", "put_", "index_reduce_",
+            "index_reduce", "scatter_reduce_", "scatter_reduce", "bincount"}
+
+# (module, enclosing function, op): why the sum is exact in any order.
+ALLOWED = {
+    ("ops/kmeans.py", "train_vocabulary", "index_add_"):
+        "int64 row counts per coarse cell: integer adds",
+    ("ops/kmeans.py", "transform", "index_add_"):
+        "0/1 word counts in f32, exact below 2^24",
+    ("ops/kmeans.py", "similarity_chunked", "index_add_"):
+        "0/1 document frequencies in f32, exact below 2^24",
+    ("ops/segsum.py", "make_plan", "bincount"):
+        "integer slot counts per bin, no weights",
+    ("ba/lm.py", "partial_camera_system", "index_put_"):
+        "the camera / model blocks of S: unique indices into zeros",
+    ("ba/lm.py", "solve_reduced", "index_put"):
+        "one GPS / pose-prior block per camera: unique indices",
+}
+
+
+def _scatter_calls():
+    """(module, function, op, line) of every scatter-add in the port: the
+    ops above, index_put / put_ only with accumulate=True, bincount only
+    of torch (numpy's runs on the host, in order)."""
+    found = []
+    for root, _, files in os.walk(PORT):
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            rel = os.path.relpath(path, PORT).replace(os.sep, "/")
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            scopes = [(n, n.name) for n in ast.walk(tree)
+                      if isinstance(n, (ast.FunctionDef,
+                                        ast.AsyncFunctionDef))]
+            for node in ast.walk(tree):
+                if not (isinstance(node, ast.Call)
+                        and isinstance(node.func, ast.Attribute)
+                        and node.func.attr in SCATTERS):
+                    continue
+                op = node.func.attr
+                if op.startswith(("index_put", "put_")) and not any(
+                        k.arg == "accumulate" and not (
+                            isinstance(k.value, ast.Constant)
+                            and k.value.value is False)
+                        for k in node.keywords):
+                    continue
+                recv = node.func.value
+                if op == "bincount" and isinstance(recv, ast.Name) \
+                        and recv.id in ("np", "numpy"):
+                    continue
+                fn = min((s for s in scopes
+                          if s[0].lineno <= node.lineno <= s[0].end_lineno),
+                         key=lambda s: s[0].end_lineno - s[0].lineno,
+                         default=(None, "<module>"))[1]
+                found.append((rel, fn, op, node.lineno))
+    return found
+
+
+def test_no_atomic_float_sum_outside_the_allowed_list():
+    """Every remaining scatter-add of the port adds integers, 0/1 counts
+    or writes unique indices; a float sum by atomics fails here."""
+    calls = _scatter_calls()
+    unknown = [c for c in calls if c[:3] not in ALLOWED]
+    assert not unknown, ("scatter-adds not on the allowed list (sum through "
+                         f"ops.segsum instead): {unknown}")
+    # and the list holds nothing stale
+    assert {c[:3] for c in calls} == set(ALLOWED)
+
+
+def test_scan_finds_a_float_scatter(tmp_path, monkeypatch):
+    """The scan sees an index_add_, a scatter_add_ and an accumulating
+    index_put_, and skips a plain index_put_ and numpy's bincount."""
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "m.py").write_text(
+        "import numpy as np\n"
+        "def f(a, i, v):\n"
+        "    a.index_add_(0, i, v)\n"
+        "    a.scatter_add_(1, i, v)\n"
+        "    a.index_put_((i,), v, accumulate=True)\n"
+        "    a.index_put_((i,), v)\n"
+        "    np.bincount(i, v)\n")
+    monkeypatch.setitem(globals(), "PORT", str(pkg))
+    got = {c[2] for c in _scatter_calls()}
+    assert got == {"index_add_", "scatter_add_", "index_put_"}
+
+
+@pytest.mark.card
+def test_kernel_on_the_card():
+    """The segsum kernel within 1e-6 of each bin's sum of |values| of its
+    plain version run in f64 on the same values, bit-equal to itself over
+    repeats (needs an NVIDIA GPU: run with `python -m pytest
+    tests/test_torch_segsum.py` on the card; `chip_smoke.py` phase 14 runs
+    the same checks at the main paths' shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the segsum kernel runs only on "
+                    "the card")
+    rng = np.random.default_rng(2)
+    for K in (1, 9, 36, 81, 128):
+        bins = torch.from_numpy(_skewed_bins(rng, 50, 20000)).cuda()
+        values = torch.from_numpy(
+            rng.normal(size=(20000, K)).astype(np.float32)).cuda()
+        plan = segsum.make_plan(bins, 50)
+        got = [segsum.segment_sum(values, plan) for _ in range(3)]
+        want = segsum.segment_sum_reference(values.double(), plan)
+        mass = segsum.segment_sum_reference(values.abs().double(), plan)
+        assert all(torch.equal(g, got[0]) for g in got)
+        assert bool(((got[0].double() - want).abs()
+                     <= 1e-6 * mass + 1e-30).all())
