@@ -216,6 +216,30 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """The device's time for one call of fn, without the host's: `reps`
+    calls captured in one CUDA graph, replayed between two events (fn must
+    not read the device from the host).  cuda_time_ms times the calls as a
+    caller makes them, which for a small launch is the host's time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet): the
 # tensor cores in bf16 and int8, HBM3.  Integer work outside the tensor
 # cores issues on the SM's 32-bit integer lanes, 64 per SM a clock
@@ -3409,15 +3433,19 @@ SEGSUM_TOL = 1e-6      # of each bin's sum of |values|
 PEAK_F64_ADD = 132 * 64 * 1.98e9
 
 
-def segsum_case(label, bins, n_bins, K, dev, gen, mask=None, time_it=False,
-                dtype=None):
+def segsum_case(label, bins, n_bins, K, dev, gen, mask=None, dtype=None):
     """One segsum shape on the card: values N(0, 1) (k-means: |N(0, 1)|);
     the kernel within SEGSUM_TOL of each bin's sum of |values| of its plain
     version run in f64 on the same values, bit-equal over 3 launches.
-    With `time_it`: CUDA-event times of the kernel, the plain version (in
-    f32, the CPU tests' arithmetic) and index_add_ of the same sums (the
-    yardstick), and the bound (bytes of the kept values, perm, off and the
-    output at 3.35 TB/s; one f64 add a value).  Returns a dict."""
+    On the card, CUDA-event times of the kernel, the plain version (in
+    f32, the CPU tests' arithmetic), index_add_ of the same sums (the
+    yardstick) and index_add_ under torch.use_deterministic_algorithms
+    (the one library call that repeats like the kernel), and the bound
+    (bytes of the kept values, perm, off and the output at 3.35 TB/s; one
+    f64 add a value).  `ms` and `library_ms` are device times
+    (graph_time_ms); `call_ms`, `library_call_ms` and the rest time the
+    calls back to back (cuda_time_ms), where a small launch shows the
+    host's time a call.  Returns a dict."""
     import torch
     from metricsfm_tpu_torch.ops import segsum
 
@@ -3447,16 +3475,29 @@ def segsum_case(label, bins, n_bins, K, dev, gen, mask=None, time_it=False,
            "max_rel_err": rel, "plain_f32_max_rel_err": rel_f32,
            "max_abs_err": float(err.max()) if err.numel() else 0.0,
            "bit_equal_repeats": repeat}
-    if time_it and torch.device(dev).type == "cuda":
+    if torch.device(dev).type == "cuda":
         idx = bins if mask is None else bins[mask]
         vals = values if mask is None else values[mask]
-        out["ms"] = cuda_time_ms(lambda: segsum.segment_sum(values, plan))
+        out["ms"] = graph_time_ms(lambda: segsum.segment_sum(values, plan))
+        out["call_ms"] = cuda_time_ms(
+            lambda: segsum.segment_sum(values, plan))
         out["plain_ms"] = cuda_time_ms(
             lambda: segsum.segment_sum_reference(values, plan), reps=3,
             warmup=1)
-        out["library_ms"] = cuda_time_ms(
-            lambda: torch.zeros((n_bins, K), device=dev).index_add_(
-                0, idx, vals))
+
+        def library():
+            return torch.zeros((n_bins, K), device=dev,
+                               dtype=values.dtype).index_add_(0, idx, vals)
+
+        out["library_ms"] = graph_time_ms(library)
+        out["library_call_ms"] = cuda_time_ms(library)
+        was = (torch.are_deterministic_algorithms_enabled(),
+               torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True)
+        try:
+            out["library_det_ms"] = cuda_time_ms(library)
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
         w = values.element_size()
         out.update(bound(kept * K, PEAK_F64_ADD,
                          w * (kept * K + n_bins * K)
@@ -3466,8 +3507,12 @@ def segsum_case(label, bins, n_bins, K, dev, gen, mask=None, time_it=False,
           f"max |err| {out['max_abs_err']:.3e} = {rel:.3e} of the bin's "
           f"sum of |values| (the f32 plain version {rel_f32:.3e}), "
           f"bit-equal over 3 launches {repeat}"
-          + (f"; {out['ms']:.4f} ms (plain {out['plain_ms']:.3f}, "
-             f"index_add_ {out['library_ms']:.4f}), {bound_text(out)}"
+          + (f"; device {out['ms']:.4f} ms, {out['bound_ms'] / out['ms']:.1%}"
+             f" of the bound (calls back to back {out['call_ms']:.4f}; "
+             f"plain {out['plain_ms']:.3f}; index_add_ device "
+             f"{out['library_ms']:.4f}, calls {out['library_call_ms']:.4f}, "
+             f"deterministic {out['library_det_ms']:.4f}), "
+             f"{bound_text(out)}"
              if "ms" in out else ""), flush=True)
     # the CPU's segment_sum is the plain version itself, which adds in f32
     # one slot after another: its own error reaches ~6e-6 on a 30k-row bin
@@ -3479,14 +3524,45 @@ def segsum_case(label, bins, n_bins, K, dev, gen, mask=None, time_it=False,
     return out
 
 
+def segsum_reuse(plan, values, dev):
+    """One plan summed again and again, as BA sums plans.cam every CG
+    iteration and at K 6, 9, 18 and 36: columns 0-2 twice in a row, then
+    the other columns (another width, read in place), then 0-2 again;
+    bit-equal, and the plan's tickets back at 0 after each launch."""
+    import torch
+    from metricsfm_tpu_torch.ops import segsum
+
+    narrow = [segsum.segment_sum(values[..., :3], plan) for _ in range(2)]
+    sync(dev)
+    zero = [int(plan.tickets.abs().sum()) == 0]
+    segsum.segment_sum(values[..., 3:], plan)
+    sync(dev)
+    zero.append(int(plan.tickets.abs().sum()) == 0)
+    again = segsum.segment_sum(values[..., :3], plan)
+    sync(dev)
+    zero.append(int(plan.tickets.abs().sum()) == 0)
+    ok = (torch.equal(narrow[0], narrow[1]) and torch.equal(narrow[0], again)
+          and all(zero))
+    print(f"  segsum plan reused ({plan.kept} slots into {plan.n_bins} "
+          f"bins, K 3, 3, {values.shape[-1] - 3}, 3): bit-equal and tickets "
+          f"at 0 {ok}", flush=True)
+    if not ok:
+        raise AssertionError("segsum: a reused plan changed its sums or "
+                             f"left a ticket set (tickets at 0: {zero})")
+    return ok
+
+
 def segsum_phase(dev="cuda"):
     """14a: the segsum kernel on BA's shape (12h: 786,432 slots into 1,024
-    cameras, K = 9, 36 and 81), k-means' (4c: ~98k descriptors into 85
-    coarse cells, K = 128, non-negative, skewed), the Hough votes'
-    (K = 1, in f64), and the edges: one bin, a bin
-    holding 90 % of the slots, bins mostly empty, masked slots, K = 3, 6,
-    18, 27 and 128 columns past a tile.  Returns the table row: BA's
-    matvec shape (K = 9) timed, every case listed."""
+    cameras, K = 9, 36 and 81), BA's shared camera model (`plans.model`
+    under use_same_camera: the 786,432 slots into one bin, K = 3 and 9;
+    `plans.cam_model`, the PCG fold: 1,024 cameras into one bin, K = 3),
+    k-means' (4c: ~98k descriptors into 85 coarse cells, K = 128,
+    non-negative, skewed), the Hough votes' (K = 1, in f64), and the
+    edges: one bin, a bin holding 90 % of the slots, bins mostly empty,
+    masked slots, K = 3, 6, 18, 27 and 128 columns past a tile; every
+    case timed; two plans reused across widths.  Returns the table row:
+    BA's matvec shape (K = 9), every case listed."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -3500,14 +3576,18 @@ def segsum_phase(dev="cuda"):
         return torch.where(heavy, torch.zeros_like(b), b)
 
     ba = uniform(786432, 1024).reshape(131072, 6)
-    cases = [segsum_case("BA matvec (cameras)", ba, 1024, 9, dev, gen,
-                         time_it=True)]
+    cases = [segsum_case("BA matvec (cameras)", ba, 1024, 9, dev, gen)]
     for K in (36, 81):
         cases.append(segsum_case("BA blocks (cameras)", ba, 1024, K, dev,
-                                 gen, time_it=True))
+                                 gen))
+    model = uniform(786432, 1).reshape(131072, 6)
     cases += [
+        segsum_case("shared model (plans.model)", model, 1, 3, dev, gen),
+        segsum_case("shared model (plans.model)", model, 1, 9, dev, gen),
+        segsum_case("PCG fold (plans.cam_model)", uniform(1024, 1), 1, 3,
+                    dev, gen),
         segsum_case("k-means (coarse cells)", skewed(98304, 85, 0.3), 85,
-                    128, dev, gen, time_it=True),
+                    128, dev, gen),
         segsum_case("one bin", uniform(50000, 1), 1, 6, dev, gen),
         segsum_case("a bin with 90 %", skewed(200000, 500, 0.9), 500, 3,
                     dev, gen),
@@ -3520,6 +3600,11 @@ def segsum_phase(dev="cuda"):
                     180 * 256, 1, dev, gen, dtype=torch.float64),
         segsum_case("no slots", uniform(0, 10), 10, 128, dev, gen),
     ]
+    from metricsfm_tpu_torch.ops import segsum
+    for bins, n_bins in ((model, 1), (ba, 1024)):
+        segsum_reuse(segsum.make_plan(bins, n_bins),
+                     torch.randn((*bins.shape, 12), generator=gen,
+                                 device=dev), dev)
     row = cases[0]
     if "ms" not in row:                  # a CPU rehearsal times nothing
         return {"name": "segsum", "cases": cases}
@@ -3532,6 +3617,9 @@ def segsum_phase(dev="cuda"):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "call_ms": row["call_ms"],
+            "library_call_ms": row["library_call_ms"],
+            "library_det_ms": row["library_det_ms"],
             "shape": f"{row['slots']} slots into {row['bins']} bins, K 9",
             "cases": cases}
 

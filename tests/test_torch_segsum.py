@@ -3,7 +3,11 @@
 On the CPU `segment_sum` is its plain version (a `segment_reduce` over the
 plan's sorted slots, one slot after another in the values' dtype); the
 CUDA kernel (ops/csrc/segsum.cu) runs only on the card
-(`test_kernel_on_the_card`, and `chip_smoke.py` phase 14).  The plain
+(`test_kernel_on_the_card`, and `chip_smoke.py` phase 14).  The plan's
+block metadata (merge-path blocks of `chunk` items, the cross-block bins'
+partials and tickets) is checked here on a model of the kernel's order:
+per block, each bin's slots summed in f64, a cross-block bin's partials
+added in block order by the block that takes its last ticket.  The plain
 version is held to an f64 `index_add_` of the same slots within 1e-12 of
 each bin's sum of |values| in f64, and bit for bit to the CPU's f32
 `index_add_` (the order the port summed in before, and the order of XLA's
@@ -196,6 +200,196 @@ def test_ba_plans_cover_the_problem():
     assert int(dense.triple.off[-1]) == 6 and int(dense.pair.off[-1]) == 18
 
 
+
+# -- the kernel's blocks, modelled on the CPU ---------------------------------
+
+def _blocks(plan):
+    """The kernel's blocks as it reads them from the plan: (first slot i0,
+    slots n, first bin s0, bins ending in the block nb) for block b of
+    ceil((kept + n_bins) / chunk)."""
+    C, cb = plan.chunk, plan.chunk_bin.tolist()
+    nblk = -(-(plan.kept + plan.n_bins) // C)
+    out = []
+    for b in range(nblk):
+        s0, i0 = cb[b], b * C - cb[b]
+        if b + 1 < nblk:
+            s1, i1 = cb[b + 1], (b + 1) * C - cb[b + 1]
+        else:
+            s1, i1 = plan.n_bins, plan.kept
+        out.append((i0, i1 - i0, s0, s1 - s0))
+    return out
+
+
+def _kernel_model(values64, plan):
+    """The kernel's order, block by block (ops/csrc/segsum.cu): a bin's
+    slots in a block summed in f64 in slot order; a bin that ends in the
+    block with all its slots there is written by it; a bin over several
+    blocks leaves a partial in each (`tail` from its first block, `head`
+    from the others) and is written by whichever takes its last ticket,
+    which adds them in block order.  Returns (out, writes: bin -> writers,
+    cross: bin -> [(block, "tail" | "head")] in arrival order by block,
+    keys: bin -> (first block, ticket block))."""
+    off = plan.off.tolist()
+    C, S = plan.chunk, plan.n_bins
+    v = values64.reshape(plan.n_slots, values64.shape[-1])[
+        plan.perm[:plan.kept].long()]
+    K = v.shape[1]
+    out = torch.full((S, K), float("nan"), dtype=torch.float64)
+    writes = {s: [] for s in range(S)}
+    cross, keys, parts = {}, {}, {}
+
+    def part(a, z):
+        return v[a:z].sum(0) if z > a else torch.zeros(K, dtype=torch.float64)
+
+    for b, (i0, n, s0, nb) in enumerate(_blocks(plan)):
+        open_front = off[s0] < i0
+        for j in range(nb):
+            s = s0 + j
+            a, z = max(off[s], i0), off[s + 1]
+            if j == 0 and open_front:
+                parts[(s, b)] = part(a, z)
+                cross.setdefault(s, []).append((b, "head"))
+                keys[s] = ((off[s] + s) // C, b)
+            else:
+                out[s] = part(a, z)
+                writes[s].append(b)
+        s1 = s0 + nb
+        lo_nb = 0 if nb == 0 else off[s1] - i0
+        if s1 < S and lo_nb < n:
+            kind = "head" if nb == 0 and open_front else "tail"
+            parts[(s1, b)] = part(max(off[s1], i0), i0 + n)
+            cross.setdefault(s1, []).append((b, kind))
+            keys[s1] = ((off[s1] + s1) // C, (off[s1 + 1] + s1) // C)
+    for s, blocks in cross.items():
+        first, last = keys[s]
+        total = torch.zeros(K, dtype=torch.float64)
+        for b in range(first, last + 1):
+            total = total + parts[(s, b)]
+        out[s] = total
+        writes[s].append(("combine", last))
+    return out, writes, cross, keys
+
+
+def _check_model(plan, values):
+    """The metadata's invariants and the model's sums (within 1e-12 of each
+    bin's sum of |values| of the f64 index_add_)."""
+    C, S = plan.chunk, plan.n_bins
+    off = plan.off.numpy().astype(np.int64)
+    assert plan.kept == int(off[-1]) if S else plan.kept == 0
+    blocks = _blocks(plan)
+    # the table is the merged sequence's searchsorted, by hand
+    ends = off[1:] + np.arange(S)
+    for b in range(len(blocks) + 1):
+        assert plan.chunk_bin[b] == int((ends < b * C).sum())
+    assert plan.tickets.numel() >= len(blocks)
+    assert (plan.tickets == 0).all()
+    # every kept slot in exactly one block, each block at most C items
+    covered = np.zeros(plan.kept, np.int64)
+    for i0, n, s0, nb in blocks:
+        assert n >= 0 and nb >= 0 and 0 < n + nb <= C
+        covered[i0:i0 + n] += 1
+    assert (covered == 1).all()
+    v64 = values.double()
+    out, writes, cross, keys = _kernel_model(v64, plan)
+    # every bin written exactly once: by its block, or by one combine
+    assert all(len(w) == 1 for w in writes.values()), writes
+    # a cross-block bin: a tail from its first block, then a head from
+    # each later block up to its ticket's, in block order
+    for s, got in cross.items():
+        first, last = keys[s]
+        assert last > first
+        assert got == [(first, "tail")] + [(b, "head") for b in
+                                           range(first + 1, last + 1)]
+    kept = v64.reshape(plan.n_slots, v64.shape[-1])[
+        plan.perm[:plan.kept].long()]
+    bins = torch.repeat_interleave(torch.arange(S),
+                                   torch.diff(plan.off).long())
+    want = torch.zeros_like(out).index_add_(0, bins, kept)
+    mass = torch.zeros_like(out).index_add_(0, bins, kept.abs())
+    assert bool(((out - want).abs() <= 1e-12 * mass + 1e-300).all())
+    return out, cross
+
+
+def _lengths_plan(lengths, K, seed, chunk, masked=0.0):
+    rng = np.random.default_rng(seed)
+    bins = np.repeat(np.arange(len(lengths)), lengths)
+    rng.shuffle(bins)
+    keep = torch.from_numpy(rng.uniform(size=len(bins)) >= masked)
+    values = torch.from_numpy(rng.normal(size=(len(bins), K))
+                              .astype(np.float32))
+    plan = segsum.make_plan(torch.from_numpy(bins), len(lengths),
+                            keep if masked else None, chunk=chunk)
+    return plan, values
+
+
+@pytest.mark.parametrize("case, lengths, chunk, masked", [
+    # one bin over many blocks
+    ("one long bin", [5000], 64, 0.0),
+    # ends exactly on block edges: with chunk 16, bin s ends at item
+    # off[s + 1] + s, so lengths of 15 put every end at an edge's last item
+    ("ends on block edges", [15] * 12, 16, 0.0),
+    ("empty at the start, an edge and the end",
+     [0, 0, 14, 0, 17, 0, 0, 40, 0, 0], 16, 0.0),
+    ("long and short mixed", [300, 1, 0, 2, 700, 0, 3, 64, 64, 0, 1], 32,
+     0.0),
+    ("masked slots", [90, 0, 33, 5, 0, 260], 32, 0.4),
+    ("every slot masked", [30, 40], 16, 1.0),
+    ("many empty bins", [0] * 500 + [7] + [0] * 300, 64, 0.0),
+    ("single slot", [1], 16, 0.0),
+    ("default chunk, skewed", [60000, 3, 0, 2000, 1, 0, 0, 50000], None,
+     0.0),
+])
+def test_plan_blocks_and_the_kernel_order(case, lengths, chunk, masked):
+    """The merge-path metadata of make_plan: every kept slot in one block,
+    every bin written once (by its block, or by the combine of a
+    cross-block bin whose partials come from consecutive blocks in order),
+    and the model's sums within 1e-12 of the f64 index_add_."""
+    plan, values = _lengths_plan(lengths, 3, len(case),
+                                 chunk or segsum.CHUNK, masked)
+    out, cross = _check_model(plan, values)
+    if case == "one long bin":
+        assert len(cross[0]) == -(-5001 // 64)
+    if case == "every slot masked":
+        assert plan.kept == 0 and (out == 0).all()
+
+
+def test_plan_with_no_kept_slots_zero_fills():
+    """kept == 0: the blocks hold bin ends only, every bin reads 0."""
+    for n_bins in (1, 5, 16, 17, 100):
+        plan = segsum.make_plan(torch.zeros(0, dtype=torch.int64), n_bins,
+                                chunk=16)
+        assert plan.kept == 0
+        assert len(_blocks(plan)) == -(-n_bins // 16)
+        out, cross = _check_model(plan, torch.zeros(0, 4))
+        assert not cross and (out == 0).all()
+
+
+def test_plan_serves_two_widths():
+    """One plan, two widths (BA's plans.cam at K 6 and 9; a column slice
+    read in place): the metadata does not depend on K, the model sums both
+    widths within 1e-12, and the plain sums equal the slices' copies."""
+    plan, values = _lengths_plan([400, 0, 37, 129, 0, 1], 15, 3, 32)
+    assert plan.chunk_bin.numel() == -(-(plan.n_slots + 6) // 32) + 1
+    for part in (values[:, :6], values[:, 6:]):
+        _check_model(plan, part.contiguous())
+        torch.testing.assert_close(
+            segsum.segment_sum(part, plan),
+            segsum.segment_sum(part.contiguous(), plan), rtol=0, atol=0)
+
+
+@settings(max_examples=40, deadline=None)
+@given(lengths=st.lists(st.one_of(st.just(0), st.just(1),
+                                  st.integers(0, 40),
+                                  st.integers(200, 3000)),
+                        min_size=1, max_size=24),
+       K=st.integers(1, 20), seed=st.integers(0, 2 ** 31 - 1),
+       chunk=st.sampled_from([16, 64, 1024]))
+def test_kernel_order_model_matches_index_add(lengths, K, seed, chunk):
+    """The kernel's order (block partials in f64, cross-block partials in
+    block order) within 1e-12 of the f64 index_add_ on any bin lengths."""
+    plan, values = _lengths_plan(lengths, K, seed, chunk)
+    _check_model(plan, values)
+
 # -- the atomic scatters that remain ------------------------------------------
 
 SCATTERS = {"index_add_", "index_add", "scatter_add_", "scatter_add",
@@ -299,14 +493,29 @@ def test_kernel_on_the_card():
         pytest.skip("needs a CUDA device: the segsum kernel runs only on "
                     "the card")
     rng = np.random.default_rng(2)
-    for K in (1, 9, 36, 81, 128):
-        bins = torch.from_numpy(_skewed_bins(rng, 50, 20000)).cuda()
-        values = torch.from_numpy(
-            rng.normal(size=(20000, K)).astype(np.float32)).cuda()
-        plan = segsum.make_plan(bins, 50)
+
+    def check(values, plan):
         got = [segsum.segment_sum(values, plan) for _ in range(3)]
         want = segsum.segment_sum_reference(values.double(), plan)
         mass = segsum.segment_sum_reference(values.abs().double(), plan)
         assert all(torch.equal(g, got[0]) for g in got)
         assert bool(((got[0].double() - want).abs()
                      <= 1e-6 * mass + 1e-30).all())
+        assert int(plan.tickets.abs().sum()) == 0
+        return got[0]
+
+    for K in (1, 9, 36, 81, 128):
+        bins = torch.from_numpy(_skewed_bins(rng, 50, 20000)).cuda()
+        values = torch.from_numpy(
+            rng.normal(size=(20000, K)).astype(np.float32)).cuda()
+        check(values, segsum.make_plan(bins, 50))
+    # one bin of 200k slots (a camera model shared by every image), the
+    # plan reused: twice in a row, then after a sum of another width
+    plan = segsum.make_plan(torch.zeros(200000, dtype=torch.int64,
+                                        device="cuda"), 1)
+    wide = torch.from_numpy(
+        rng.normal(size=(200000, 12)).astype(np.float32)).cuda()
+    first = check(wide[:, :3], plan)
+    assert torch.equal(check(wide[:, :3], plan), first)
+    check(wide[:, 3:], plan)
+    assert torch.equal(check(wide[:, :3], plan), first)
