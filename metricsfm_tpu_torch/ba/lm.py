@@ -58,6 +58,7 @@ from torch.func import jacfwd, vmap
 
 from ..ops import projection
 from ..ops.segsum import SegmentPlan, make_plan, segment_sum
+from ..utils.tracing import span
 from .problem import BAProblem
 
 
@@ -183,6 +184,23 @@ def robust_weights(r, delta):
     return torch.sqrt(w2)
 
 
+def _linearize(problem: BAProblem, cfg: LMConfig):
+    """_obs_jacobians' r, Jpose, Jintr and Jpt, each scaled by the robust
+    weights sqrt(rho'(s))."""
+    with span("ba/lm/linearize"):
+        r, Jpo, Jin, Jpt = _obs_jacobians(problem)
+        rw = robust_weights(r, cfg.huber_delta)[..., None]
+        return (r * rw, Jpo * rw[..., None], Jin * rw[..., None],
+                Jpt * rw[..., None])
+
+
+def _host(x, name: str, to=float):
+    """The 0-d device tensor x on the host as `to`: one blocking read,
+    alone in the span `name`."""
+    with span(name):
+        return to(x)
+
+
 def robust_cost(r, mask, delta):
     """Total Huber cost, 0.5 * sum rho(|r|^2) over valid observations."""
     s = torch.sum(r * r, dim=-1)
@@ -223,8 +241,9 @@ def _triple_residual(poses3, gps3, w2, eps=1e-8):
     gps_error_pose_raletive_angle.h, gps_error_pose_raletive_dis.h)."""
     c = projection.camera_center(poses3)                  # (..., 3, 3)
     # a tensor eps: under jacfwd a Python float added to a 0-d dual tensor
-    # promotes the tangent to float64
-    eps = torch.as_tensor(eps, dtype=poses3.dtype, device=poses3.device)
+    # promotes the tangent to float64; filled on the device, as a copy from
+    # the host would wait for the card
+    eps = torch.full((), eps, dtype=poses3.dtype, device=poses3.device)
     v1 = c[..., 0, :] - c[..., 1, :]
     v2 = c[..., 2, :] - c[..., 1, :]
     # sqrt(|v|^2 + eps) keeps the Jacobian finite for degenerate triples
@@ -276,9 +295,10 @@ def problem_cost(problem: BAProblem, huber_delta: float, reduce=None):
 def has_priors(problem: BAProblem) -> bool:
     """Whether any GPS / pose-prior / triple weight is nonzero (one host
     read)."""
-    return bool(torch.any(problem.gps_weight != 0)
-                | torch.any(problem.pose_prior_weight != 0)
-                | torch.any(problem.gps_triple_weight != 0))
+    return _host(torch.any(problem.gps_weight != 0)
+                 | torch.any(problem.pose_prior_weight != 0)
+                 | torch.any(problem.gps_triple_weight != 0),
+                 "ba/lm/read.priors", bool)
 
 
 _gps_rj = vmap(jacfwd(_aux(_gps_residual_one), has_aux=True))
@@ -350,12 +370,13 @@ def _chol3x3(A, eps=1e-12):
 
 
 def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig,
-                          plans: Optional[BAPlans] = None):
+                          plans: Optional[BAPlans] = None, reduce=None):
     """Linearize the tracks into the reduced camera system.
 
     Returns (S, rhs, aux): the undamped, unmasked (6C+3M)^2 system, its
     right-hand side, and the per-track tensors back-substitution needs.
-    Every term is a sum over tracks, through `plans` (made here if None).
+    Every term is a sum over tracks, through `plans` (made here if None),
+    and S and rhs are summed over the ranks by `reduce`.
     """
     C, M, P = problem.n_cameras, problem.n_models, problem.n_points
     D = 6 * C + 3 * M
@@ -363,79 +384,78 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig,
     if plans is None:
         plans = make_plans(problem, cfg._replace(cg_iterations=0), False)
 
-    r, Jpo, Jin, Jpt = _obs_jacobians(problem)
-    rw = robust_weights(r, cfg.huber_delta)[..., None]
-    r = r * rw
-    Jpo = Jpo * rw[..., None]
-    Jin = Jin * rw[..., None]
-    Jpt = Jpt * rw[..., None]
+    r, Jpo, Jin, Jpt = _linearize(problem, cfg)
+    with span("ba/lm/reduce"):
+        # ---- gradient ----
+        g_cam = torch.cat([
+            segment_sum(torch.einsum("pvri,pvr->pvi", Jpo, r),
+                        plans.cam).reshape(-1),
+            segment_sum(torch.einsum("pvri,pvr->pvi", Jin, r),
+                        plans.model).reshape(-1)])
+        g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)   # (P,3)
 
-    # ---- gradient ----
-    g_cam = torch.cat([
-        segment_sum(torch.einsum("pvri,pvr->pvi", Jpo, r),
-                    plans.cam).reshape(-1),
-        segment_sum(torch.einsum("pvri,pvr->pvi", Jin, r),
-                    plans.model).reshape(-1)])
-    g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)   # (P,3)
+        # ---- point blocks ----
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
+        diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+        damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
+        Hpp_d = Hpp + torch.diag_embed(damp)
+        # frozen points: identity block (benign inverse; d_pt forced 0 later)
+        pm = problem.point_mut[:, None, None]
+        Hpp_d = Hpp_d * pm + eye3 * (1.0 - pm)
+        Hpp_inv = _inv3x3(Hpp_d)
 
-    # ---- point blocks ----
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
-    diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
-    damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
-    Hpp_d = Hpp + torch.diag_embed(damp)
-    # frozen points: identity block (benign inverse; d_pt forced 0 later)
-    pm = problem.point_mut[:, None, None]
-    Hpp_d = Hpp_d * pm + eye3 * (1.0 - pm)
-    Hpp_inv = _inv3x3(Hpp_d)
+        # ---- camera block-diagonals ----
+        Hcc_pose = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jpo),
+                               plans.cam)
+        Hcc_intr = segment_sum(torch.einsum("pvri,pvrj->pvij", Jin, Jin),
+                               plans.model)
+        Hcc_pi = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jin),
+                             plans.cam)
 
-    # ---- camera block-diagonals ----
-    Hcc_pose = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jpo),
-                           plans.cam)
-    Hcc_intr = segment_sum(torch.einsum("pvri,pvrj->pvij", Jin, Jin),
-                           plans.model)
-    Hcc_pi = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jin),
-                         plans.cam)
+        S = torch.zeros((D, D), dtype=dtype, device=dev)
+        ar6 = torch.arange(6, device=dev)
+        ar3 = torch.arange(3, device=dev)
+        pose_rows = 6 * torch.arange(C, device=dev)[:, None] + ar6     # (C,6)
+        intr_rows = 6 * C + 3 * torch.arange(M, device=dev)[:, None] + ar3
+        pi_cols = 6 * C + 3 * problem.cam_model[:, None] + ar3         # (C,3)
+        # each (row, col) below is written once, into zeros: exact in any order
+        S.index_put_((pose_rows[:, :, None], pose_rows[:, None, :]), Hcc_pose,
+                     accumulate=True)
+        S.index_put_((intr_rows[:, :, None], intr_rows[:, None, :]), Hcc_intr,
+                     accumulate=True)
+        S.index_put_((pose_rows[:, :, None], pi_cols[:, None, :]), Hcc_pi,
+                     accumulate=True)
+        S.index_put_((pi_cols[:, :, None], pose_rows[:, None, :]),
+                     Hcc_pi.transpose(-1, -2), accumulate=True)
 
-    S = torch.zeros((D, D), dtype=dtype, device=dev)
-    ar6 = torch.arange(6, device=dev)
-    ar3 = torch.arange(3, device=dev)
-    pose_rows = 6 * torch.arange(C, device=dev)[:, None] + ar6     # (C,6)
-    intr_rows = 6 * C + 3 * torch.arange(M, device=dev)[:, None] + ar3
-    pi_cols = 6 * C + 3 * problem.cam_model[:, None] + ar3         # (C,3)
-    # each (row, col) below is written once, into zeros: exact in any order
-    S.index_put_((pose_rows[:, :, None], pose_rows[:, None, :]), Hcc_pose,
-                 accumulate=True)
-    S.index_put_((intr_rows[:, :, None], intr_rows[:, None, :]), Hcc_intr,
-                 accumulate=True)
-    S.index_put_((pose_rows[:, :, None], pi_cols[:, None, :]), Hcc_pi,
-                 accumulate=True)
-    S.index_put_((pi_cols[:, :, None], pose_rows[:, None, :]),
-                 Hcc_pi.transpose(-1, -2), accumulate=True)
+        # ---- Schur subtraction: S -= sum_p E_p Hpp_inv E_p^T ----
+        # W (P,V,9,3) = [Jpose|Jintr]^T Jpt per view; mutable points only.
+        Jc = torch.cat([Jpo, Jin], dim=-1)                           # (P,V,2,9)
+        W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) \
+            * problem.point_mut[:, None, None, None]
+        # Hpp_inv = L L^T; per point, fold its views into per-camera /
+        # per-model factors G (P, C, 6, 3) and (P, M, 3, 3) — segment sums
+        # over (point, camera) bins — so the Schur fill is one G G^T product
+        U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))     # (P,V,9,3)
+        G_pose = segment_sum(U[:, :, :6], plans.point_cam).reshape(
+            P, C, 6, 3)
+        G_intr = segment_sum(U[:, :, 6:], plans.point_model).reshape(
+            P, M, 3, 3)
+        Gp = G_pose.permute(1, 2, 0, 3).reshape(6 * C, 3 * P)
+        Gi = G_intr.permute(1, 2, 0, 3).reshape(3 * M, 3 * P)
+        G = torch.cat([Gp, Gi], dim=0)                                # (D,3P)
+        S = S - G @ G.T
 
-    # ---- Schur subtraction: S -= sum_p E_p Hpp_inv E_p^T ----
-    # W (P,V,9,3) = [Jpose|Jintr]^T Jpt per view; mutable points only.
-    Jc = torch.cat([Jpo, Jin], dim=-1)                               # (P,V,2,9)
-    W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) \
-        * problem.point_mut[:, None, None, None]
-    # Hpp_inv = L L^T; per point, fold its views into per-camera / per-model
-    # factors G (P, C, 6, 3) and (P, M, 3, 3) — segment sums over (point,
-    # camera) bins — so the Schur fill is one G G^T product
-    U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))         # (P,V,9,3)
-    G_pose = segment_sum(U[:, :, :6], plans.point_cam).reshape(P, C, 6, 3)
-    G_intr = segment_sum(U[:, :, 6:], plans.point_model).reshape(P, M, 3, 3)
-    Gp = G_pose.permute(1, 2, 0, 3).reshape(6 * C, 3 * P)
-    Gi = G_intr.permute(1, 2, 0, 3).reshape(3 * M, 3 * P)
-    G = torch.cat([Gp, Gi], dim=0)                                    # (D,3P)
-    S = S - G @ G.T
-
-    # ---- rhs: -(g_cam - E Hpp_inv g_pt) ----
-    y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
-    corr = torch.einsum("pvij,pj->pvi", W, y)                         # (P,V,9)
-    rhs = -g_cam + torch.cat([
-        segment_sum(corr[..., :6], plans.cam).reshape(-1),
-        segment_sum(corr[..., 6:], plans.model).reshape(-1)])
-    aux = {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
+        # ---- rhs: -(g_cam - E Hpp_inv g_pt) ----
+        y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
+        corr = torch.einsum("pvij,pj->pvi", W, y)                     # (P,V,9)
+        rhs = -g_cam + torch.cat([
+            segment_sum(corr[..., :6], plans.cam).reshape(-1),
+            segment_sum(corr[..., 6:], plans.model).reshape(-1)])
+        aux = {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
+        if reduce is not None:
+            S, rhs = _reduce_cat(reduce, S, rhs)
     return S, rhs, aux
 
 
@@ -498,7 +518,7 @@ CG_POLL = 8   # CG iterations between host reads of the on-device flag
 
 
 def _track_terms(problem: BAProblem, lam, cfg: LMConfig,
-                 plans: Optional[BAPlans] = None):
+                 plans: Optional[BAPlans] = None, reduce=None):
     """Per-track tensors and rhs of the PCG path: everything O(P*V), no
     (D, D) matrix and no O(P*C) factor.
 
@@ -507,53 +527,53 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig,
     Hpp_inv (P,3,3) and the block-Jacobi pieces of S (the camera and model
     diagonal blocks minus their Schur parts); aux is what backsub_points
     needs.  Masked slots carry zero Jacobians and residuals, so they add
-    nothing to any camera sum.
+    nothing to any camera sum.  `reduce` sums rhs and the block-Jacobi
+    pieces over the ranks.
     """
     dtype, dev = problem.points.dtype, problem.points.device
     if plans is None:
         plans = make_plans(problem, cfg, False)
 
-    r, Jpo, Jin, Jpt = _obs_jacobians(problem)
-    rw = robust_weights(r, cfg.huber_delta)[..., None]
-    r = r * rw
-    Jpo = Jpo * rw[..., None]
-    Jin = Jin * rw[..., None]
-    Jpt = Jpt * rw[..., None]
+    r, Jpo, Jin, Jpt = _linearize(problem, cfg)
+    with span("ba/lm/reduce"):
+        pm = problem.point_mut
 
-    pm = problem.point_mut
+        # ---- point blocks ----
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
+        diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+        damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
+        Hpp_d = Hpp + torch.diag_embed(damp)
+        Hpp_d = Hpp_d * pm[:, None, None] + eye3 * (1.0 - pm)[:, None, None]
+        Hpp_inv = _inv3x3(Hpp_d)
 
-    # ---- point blocks ----
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
-    diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
-    damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
-    Hpp_d = Hpp + torch.diag_embed(damp)
-    Hpp_d = Hpp_d * pm[:, None, None] + eye3 * (1.0 - pm)[:, None, None]
-    Hpp_inv = _inv3x3(Hpp_d)
+        # ---- W and its Cholesky-folded form U (Schur part = U U^T) ----
+        Jc = torch.cat([Jpo, Jin], dim=-1)                          # (P,V,2,9)
+        W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) \
+            * pm[:, None, None, None]
+        U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))    # (P,V,9,3)
 
-    # ---- W and its Cholesky-folded form U (Schur part = U U^T) ----
-    Jc = torch.cat([Jpo, Jin], dim=-1)                              # (P,V,2,9)
-    W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) * pm[:, None, None, None]
-    U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))        # (P,V,9,3)
+        # ---- gradient + Schur rhs correction ----
+        g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)
+        y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
+        rv = torch.einsum("pvij,pj->pvi", W, y) \
+            - torch.einsum("pvri,pvr->pvi", Jc, r)                  # (P,V,9)
+        rhs = torch.cat([segment_sum(rv[..., :6], plans.cam).reshape(-1),
+                         segment_sum(rv[..., 6:], plans.model).reshape(-1)])
 
-    # ---- gradient + Schur rhs correction ----
-    g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)
-    y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
-    rv = torch.einsum("pvij,pj->pvi", W, y) \
-        - torch.einsum("pvri,pvr->pvi", Jc, r)                      # (P,V,9)
-    rhs = torch.cat([segment_sum(rv[..., :6], plans.cam).reshape(-1),
-                     segment_sum(rv[..., 6:], plans.model).reshape(-1)])
+        # ---- block-Jacobi pieces of S (Hcc minus Schur part, per view) ----
+        blk_pose = segment_sum(
+            torch.einsum("pvri,pvrj->pvij", Jpo, Jpo)
+            - torch.einsum("pvik,pvjk->pvij", U[:, :, :6], U[:, :, :6]),
+            plans.cam)
+        blk_intr = segment_sum(
+            torch.einsum("pvri,pvrj->pvij", Jin, Jin)
+            - torch.einsum("pvik,pvjk->pvij", U[:, :, 6:], U[:, :, 6:]),
+            plans.model)
 
-    # ---- block-Jacobi pieces of S (Hcc minus Schur part, per view) ----
-    blk_pose = segment_sum(
-        torch.einsum("pvri,pvrj->pvij", Jpo, Jpo)
-        - torch.einsum("pvik,pvjk->pvij", U[:, :, :6], U[:, :, :6]),
-        plans.cam)
-    blk_intr = segment_sum(
-        torch.einsum("pvri,pvrj->pvij", Jin, Jin)
-        - torch.einsum("pvik,pvjk->pvij", U[:, :, 6:], U[:, :, 6:]),
-        plans.model)
-
+        if reduce is not None:
+            rhs, blk_pose, blk_intr = _reduce_cat(reduce, rhs, blk_pose,
+                                                  blk_intr)
     terms = {"Jc": Jc, "W": W, "Hpp_inv": Hpp_inv,
              "blk_pose": blk_pose, "blk_intr": blk_intr}
     aux = {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
@@ -663,7 +683,8 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
     rz = torch.sum(r * z)
     active = torch.sum(r * r) > tol2
     for i in range(cfg.cg_iterations):
-        if i % CG_POLL == 0 and not bool(active):
+        if i % CG_POLL == 0 and not _host(active, "ba/lm/read.cg_poll",
+                                          bool):
             break
         Ap = matvec(p)
         alpha = torch.where(active,
@@ -681,23 +702,37 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
     return x * free
 
 
-def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
-                           tol_rel=None, priors: bool = True, reduce=None,
-                           plans: Optional[BAPlans] = None):
-    C, M = problem.n_cameras, problem.n_models
+def _camera_step(problem: BAProblem, lam, cfg: LMConfig, tol_rel=None,
+                 priors: bool = True, reduce=None,
+                 plans: Optional[BAPlans] = None):
+    """The camera step d_cam (6C + 3M,) of one LM step and what
+    back-substitution needs: dense Schur and Cholesky, or block-Jacobi PCG
+    when cfg.cg_iterations > 0.  `priors` False skips the prior terms (all
+    weights zero); `reduce` sums the track partials over the ranks;
+    `plans` are the problem's (made here if None)."""
     if plans is None:
         plans = make_plans(problem, cfg, priors)
-    terms, rhs, aux = _track_terms(problem, lam, cfg, plans)
-    if reduce is not None:
-        rhs, terms["blk_pose"], terms["blk_intr"] = _reduce_cat(
-            reduce, rhs, terms["blk_pose"], terms["blk_intr"])
-    prior_blocks = None
-    if priors:
-        Hg, Ht, rhs_extra = _gps_prior_blocks(problem, plans.triple)
-        prior_blocks = (Hg, Ht)
-        rhs = rhs + rhs_extra
-    d_cam = _cg_solve(problem, terms, rhs, lam, cfg, tol_rel=tol_rel,
-                      prior_blocks=prior_blocks, reduce=reduce, plans=plans)
+    if cfg.cg_iterations <= 0:
+        S, rhs, aux = partial_camera_system(problem, lam, cfg, plans, reduce)
+        with span("ba/lm/camera_solve"):
+            return solve_reduced(S, rhs, problem, lam, cfg, priors=priors,
+                                 plans=plans), aux
+    terms, rhs, aux = _track_terms(problem, lam, cfg, plans, reduce)
+    with span("ba/lm/camera_solve"):
+        prior_blocks = None
+        if priors:
+            Hg, Ht, rhs_extra = _gps_prior_blocks(problem, plans.triple)
+            prior_blocks = (Hg, Ht)
+            rhs = rhs + rhs_extra
+        return _cg_solve(problem, terms, rhs, lam, cfg, tol_rel=tol_rel,
+                         prior_blocks=prior_blocks, reduce=reduce,
+                         plans=plans), aux
+
+
+def _split_step(problem: BAProblem, d_cam, aux):
+    """(d_pose, d_intr, d_pt) of the camera step d_cam: the points' by
+    back-substitution, frozen dofs zero."""
+    C, M = problem.n_cameras, problem.n_models
     d_pt = backsub_points(aux, d_cam, problem)
     d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
     d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
@@ -707,25 +742,9 @@ def _assemble_and_solve_cg(problem: BAProblem, lam, cfg: LMConfig,
 def _assemble_and_solve(problem: BAProblem, lam, cfg: LMConfig,
                         tol_rel=None, priors: bool = True, reduce=None,
                         plans: Optional[BAPlans] = None):
-    """One LM step; `priors` False skips the prior terms (all weights
-    zero); `reduce` sums the track partials over the ranks; `plans` are
-    the problem's (made here if None)."""
-    if plans is None:
-        plans = make_plans(problem, cfg, priors)
-    if cfg.cg_iterations > 0:
-        return _assemble_and_solve_cg(problem, lam, cfg, tol_rel=tol_rel,
-                                      priors=priors, reduce=reduce,
-                                      plans=plans)
-    C, M = problem.n_cameras, problem.n_models
-    S, rhs, aux = partial_camera_system(problem, lam, cfg, plans)
-    if reduce is not None:
-        S, rhs = _reduce_cat(reduce, S, rhs)
-    d_cam = solve_reduced(S, rhs, problem, lam, cfg, priors=priors,
-                          plans=plans)
-    d_pt = backsub_points(aux, d_cam, problem)
-    d_pose = d_cam[:6 * C].reshape(C, 6) * problem.pose_mut[:, None]
-    d_intr = d_cam[6 * C:].reshape(M, 3) * problem.intr_mut[:, None]
-    return d_pose, d_intr, d_pt
+    """One LM step (d_pose, d_intr, d_pt), dense or PCG as _camera_step."""
+    return _split_step(problem, *_camera_step(problem, lam, cfg, tol_rel,
+                                              priors, reduce, plans))
 
 
 def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig(), reduce=None):
@@ -735,40 +754,55 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig(), reduce=None):
     lambda, converged and rms_px (host numbers).  With `reduce` (the sum
     over the ranks) `problem` is this rank's block of tracks, and the
     numbers are the whole problem's.
+
+    Spans (utils/tracing): ba/lm/solve holds the call; ba/lm/plans the
+    plans; ba/lm/iteration each LM iteration, which holds ba/lm/linearize,
+    ba/lm/reduce, ba/lm/camera_solve and ba/lm/step (back-substitution,
+    the candidate and its cost) in that order.  Each blocking host read
+    is alone in a ba/lm/read.* or segsum/read.* span.
     """
-    cost = float(problem_cost(problem, cfg.huber_delta, reduce))
-    initial_cost = cost
-    lam = float(cfg.init_lambda)
-    forcing = cfg.cg_forcing and cfg.cg_iterations > 0
-    eta = cfg.cg_eta0 if forcing else cfg.cg_tol
-    priors = has_priors(problem)
-    # the index sets are the same every iteration: one set of plans
-    plans = make_plans(problem, cfg, priors)
-    it = 0
-    converged = False
-    while it < cfg.max_iterations:
-        d_pose, d_intr, d_pt = _assemble_and_solve(
-            problem, lam, cfg, tol_rel=eta if forcing else None,
-            priors=priors, reduce=reduce, plans=plans)
-        cand = problem._replace(poses=problem.poses + d_pose,
-                                intrs=problem.intrs + d_intr,
-                                points=problem.points + d_pt)
-        new_cost = float(problem_cost(cand, cfg.huber_delta, reduce))
-        it += 1
-        accept = new_cost < cost and math.isfinite(new_cost)
-        if accept:
-            rel = abs(cost - new_cost) / max(cost, 1e-20)
-            problem, cost = cand, new_cost
-            lam = max(lam / cfg.lambda_down, cfg.min_lambda)
-            # forcing sequence: tighten superlinearly on acceptance only
-            eta = max(eta ** 1.5, cfg.cg_tol)
-            if rel < cfg.rtol:
-                converged = True
-                break
-        else:
-            lam = min(lam * cfg.lambda_up, cfg.max_lambda)
-    n_obs = problem.n_observations()
-    n_obs = int(n_obs if reduce is None else reduce(n_obs))
+    with span("ba/lm/solve"):
+        cost = _host(problem_cost(problem, cfg.huber_delta, reduce),
+                     "ba/lm/read.initial_cost")
+        initial_cost = cost
+        lam = float(cfg.init_lambda)
+        forcing = cfg.cg_forcing and cfg.cg_iterations > 0
+        eta = cfg.cg_eta0 if forcing else cfg.cg_tol
+        priors = has_priors(problem)
+        # the index sets are the same every iteration: one set of plans
+        with span("ba/lm/plans"):
+            plans = make_plans(problem, cfg, priors)
+        it = 0
+        converged = False
+        while it < cfg.max_iterations:
+            with span("ba/lm/iteration"):
+                d_cam, aux = _camera_step(
+                    problem, lam, cfg, tol_rel=eta if forcing else None,
+                    priors=priors, reduce=reduce, plans=plans)
+                with span("ba/lm/step"):
+                    d_pose, d_intr, d_pt = _split_step(problem, d_cam, aux)
+                    cand = problem._replace(poses=problem.poses + d_pose,
+                                            intrs=problem.intrs + d_intr,
+                                            points=problem.points + d_pt)
+                    new_cost = _host(problem_cost(cand, cfg.huber_delta,
+                                                  reduce), "ba/lm/read.cost")
+                it += 1
+                accept = new_cost < cost and math.isfinite(new_cost)
+                if accept:
+                    rel = abs(cost - new_cost) / max(cost, 1e-20)
+                    problem, cost = cand, new_cost
+                    lam = max(lam / cfg.lambda_down, cfg.min_lambda)
+                    # forcing sequence: tighten superlinearly on acceptance
+                    eta = max(eta ** 1.5, cfg.cg_tol)
+                    if rel < cfg.rtol:
+                        converged = True
+                        break
+                else:
+                    lam = min(lam * cfg.lambda_up, cfg.max_lambda)
+        n_obs = problem.n_observations()
+        if reduce is not None:
+            n_obs = reduce(n_obs)
+        n_obs = _host(n_obs, "ba/lm/read.n_obs", int)
     info = {"initial_cost": initial_cost, "final_cost": cost,
             "iterations": it, "lambda": lam, "converged": converged,
             "rms_px": math.sqrt(2.0 * cost / max(n_obs, 1))}

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.tracing import span
 from . import cuda_build
 
 
@@ -96,17 +97,20 @@ def make_plan(bins, n_bins: int, mask: Optional[torch.Tensor] = None,
     kept = n if mask is None else 0
     if n:
         lo, hi = torch.aminmax(checked)
-        read = [lo, hi] if mask is None else [lo, hi, keep.sum()]
-        lo, hi, *rest = torch.stack(read).tolist()
+        read = torch.stack([lo, hi] if mask is None else [lo, hi, keep.sum()])
+        with span("segsum/read.plan"):
+            lo, hi, *rest = read.tolist()
         kept = rest[0] if rest else kept
         if lo < 0 or hi >= n_bins:
             raise IndexError(f"segment bins outside [0, {n_bins}): "
                              f"[{lo}, {hi}]")
     dev = flat.device
-    perm = torch.argsort(flat, stable=True).to(torch.int32)
-    # integer counts: exact in any order
-    counts = torch.bincount(flat, minlength=n_bins + 1)[:n_bins]
-    ends = torch.cumsum(counts, 0)
+    perm = torch.argsort(flat, stable=True)
+    # bin s ends before the first sorted slot of a later bin (a CUDA
+    # bincount would read its input's range on the host)
+    ends = torch.searchsorted(flat[perm],
+                              torch.arange(1, n_bins + 1, device=dev))
+    perm = perm.to(torch.int32)
     off = torch.zeros(n_bins + 1, dtype=torch.int32, device=dev)
     off[1:] = ends
     # bin s's end in the merged sequence is off[s + 1] + s; the blocks are
