@@ -6,7 +6,8 @@ Phases, each printing its own line with seconds; the first failure raises
 and the script exits non-zero:
   1. refuse to run without CUDA; print the card's name and power limit;
   2. build every CUDA kernel from ops/csrc with nvcc (one nvcc per source,
-     all started together: 2a, 2b, 2c, 2d-2h and segsum) and print each
+     all started together: 2a, 2b, 2c, 2d-2h, segsum and ba_linearize)
+     and print each
      kernel's registers, spills, shared memory and any wgmma-serialization
      warning from the build log;
   3. hold each kernel against its plain PyTorch version on the card, at the
@@ -39,7 +40,13 @@ and the script exits non-zero:
      operands at an offset), 2h timed on int32 and float32 volumes too;
      the bare products (bf16 torch.matmul, torch._int_mm), 2c's store
      stream (torch.full) and 2h's c0 / best alone (torch.min) are timed
-     as yardsticks only;
+     as yardsticks only; the port-only linearize kernel (ba_linearize,
+     `linearize_phase`) against vmap(jacfwd) at the BA cell's slot counts
+     (64 cameras, 16,384-65,536 points x 16 slots, 41 % kept), in f32
+     without the Huber weight against the f64 plain version (within twice
+     the f32 plain version's own error and 1e-6), with it against its own
+     unweighted blocks times the weight (1e-6), and in f64 (1e-12), timed
+     beside its bytes bound and the plain version;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
      scene with 4096 keypoints per image, with the knn2 launch count reset
      just before and read just after, and check the reconstruction against
@@ -152,9 +159,11 @@ and the script exits non-zero:
      >= 80 % of the points within one disparity pixel's depth of a
      rendered plane after Umeyama on the camera centres; `cli dense
      --method elas` on the first pair, gated alike;
- 10. print the paths' numbers, the kernel table (2a-2h and segsum,
-     launches summed over the paths, phase 13's ranks' 2a included), the
-     card line and the result line.
+ 10. print the paths' numbers, the kernel table (2a-2h, segsum and
+     ba_linearize; a kernel's launches summed over the paths' timed runs,
+     each count reset just before its run, phase 13's ranks' 2a and
+     sharded LMs included; every path that solves a BA on the card must
+     launch ba_linearize), the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
 of each end-to-end path (the aerial one device activity only, no trace).
 A failed build raises with its nvcc log; to keep a whole run's record,
@@ -1379,7 +1388,7 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     import numpy as np
     import torch
     from metricsfm_tpu_torch import cli
-    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.ops import ba_linearize, matching, np_geom
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
@@ -1396,6 +1405,7 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             torch.cuda.synchronize()
             matching.knn2_gather.launches = 0
             segment_sum.launches = 0
+            ba_linearize.linearize.launches = 0
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
                                "all", "--no-resize", "--max-kp",
@@ -1403,7 +1413,8 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = {"knn2": matching.knn2_gather.launches,
-                        "segsum": segment_sum.launches}
+                        "segsum": segment_sum.launches,
+                        "ba_linearize": ba_linearize.linearize.launches}
         finally:
             shutil.rmtree(fold, ignore_errors=True)
         if not scenes:
@@ -1459,7 +1470,7 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
     from metricsfm_tpu_torch.io import store as fstore
     from metricsfm_tpu_torch.models.database import Database
     from metricsfm_tpu_torch.models.match_graph import candidates_feature
-    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.ops import ba_linearize, matching, np_geom
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
@@ -1481,6 +1492,7 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
             torch.cuda.synchronize()
             matching.knn2_gather.launches = 0
             segment_sum.launches = 0
+            ba_linearize.linearize.launches = 0
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--no-resize", "--max-kp",
                                str(max_kp), "--device", "cuda"]
@@ -1488,7 +1500,8 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = {"knn2": matching.knn2_gather.launches,
-                        "segsum": segment_sum.launches}
+                        "segsum": segment_sum.launches,
+                        "ba_linearize": ba_linearize.linearize.launches}
             peak = torch.cuda.max_memory_allocated()
             # what the run stored: the vocabulary, the word bags, renders;
             # the candidates before and after the word-seed gate are
@@ -1576,7 +1589,8 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     import numpy as np
     import torch
     from metricsfm_tpu_torch import cli
-    from metricsfm_tpu_torch.ops import five_point, matching, np_geom
+    from metricsfm_tpu_torch.ops import (ba_linearize, five_point, matching,
+                                         np_geom)
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.exif import extract_image_info
@@ -1599,6 +1613,7 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             torch.cuda.synchronize()
             matching.knn2_gather.launches = 0
             segment_sum.launches = 0
+            ba_linearize.linearize.launches = 0
             five_point.essential_ransac_5pt.calls = 0
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
@@ -1607,7 +1622,8 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = {"knn2": matching.knn2_gather.launches,
-                        "segsum": segment_sum.launches}
+                        "segsum": segment_sum.launches,
+                        "ba_linearize": ba_linearize.linearize.launches}
             calls_5pt = five_point.essential_ransac_5pt.calls
         finally:
             shutil.rmtree(fold, ignore_errors=True)
@@ -1781,7 +1797,7 @@ def aerial_phase(rows=10, cols=20, hierarchical=False, matching="priori"):
     import numpy as np
     import torch
     from metricsfm_tpu_torch.ops import matching as ops_matching
-    from metricsfm_tpu_torch.ops import np_geom
+    from metricsfm_tpu_torch.ops import ba_linearize, np_geom
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import synth
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
@@ -1792,10 +1808,12 @@ def aerial_phase(rows=10, cols=20, hierarchical=False, matching="priori"):
     torch.cuda.reset_peak_memory_stats()
     ops_matching.knn2_gather.launches = 0
     segment_sum.launches = 0
+    ba_linearize.linearize.launches = 0
     scenes, sfm, n_verified, dt, (n_words, n_cand, n_kept) = \
         aerial_run(gt, cfg)
     launches = {"knn2": ops_matching.knn2_gather.launches,
-                "segsum": segment_sum.launches}
+                "segsum": segment_sum.launches,
+                "ba_linearize": ba_linearize.linearize.launches}
     peak = torch.cuda.max_memory_allocated()
     if not scenes:
         raise AssertionError("aerial: no model reconstructed")
@@ -2282,6 +2300,7 @@ def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
     Returns (launches, stats)."""
     import torch
     from metricsfm_tpu_torch import cli
+    from metricsfm_tpu_torch.ops import ba_linearize
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
 
@@ -2296,10 +2315,12 @@ def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
         segment_sum.launches = 0
+        ba_linearize.linearize.launches = 0
         t0 = time.perf_counter()
         scene = cli.main(["slam", fold, "--device", device])
         dt = time.perf_counter() - t0
-        launches = {"segsum": segment_sum.launches}
+        launches = {"segsum": segment_sum.launches,
+                    "ba_linearize": ba_linearize.linearize.launches}
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         err = street_gates(fold, gt, n)
     finally:
@@ -2340,7 +2361,7 @@ def street_rematch_phase(n=100, n_pts=6000, min_tracks=1000,
     import torch
     from metricsfm_tpu_torch.config import street_preset
     from metricsfm_tpu_torch.models import slam_gps
-    from metricsfm_tpu_torch.ops import matching
+    from metricsfm_tpu_torch.ops import ba_linearize, matching
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER, span
 
@@ -2355,13 +2376,15 @@ def street_rematch_phase(n=100, n_pts=6000, min_tracks=1000,
             torch.cuda.synchronize()
         matching.knn2_gather.launches = 0
         segment_sum.launches = 0
+        ba_linearize.linearize.launches = 0
         t0 = time.perf_counter()
         pipe = slam_gps.SLAMGPS(street_preset(), device=device)
         with span("slam/run", sync=True):
             scene = pipe.run(fold, rematch=True)
         dt = time.perf_counter() - t0
         launches = {"knn2": matching.knn2_gather.launches,
-                    "segsum": segment_sum.launches}
+                    "segsum": segment_sum.launches,
+                    "ba_linearize": ba_linearize.linearize.launches}
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         err = street_gates(fold, gt, n)
         und = os.listdir(os.path.join(fold, "mtpu_out", "undistort_images"))
@@ -2519,9 +2542,10 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
     import numpy as np
     import torch
     from metricsfm_tpu_torch.ba.lm import LMConfig, solve_lm
-    from metricsfm_tpu_torch.ops import (epipolar, essential_matching, gist,
-                                         lie, lines, matching, panorama,
-                                         pnp, sift)
+    from metricsfm_tpu_torch.ops import (ba_linearize, epipolar,
+                                         essential_matching, gist, lie,
+                                         lines, matching, panorama, pnp,
+                                         sift)
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.utils import (calibration, geo_verification,
                                            pso, synth)
@@ -2589,9 +2613,10 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
         inliers=n_inl, gt_share=share, launches=launches["knn2"])
     stats["a_geo_verification"]["kept"] = kept
 
-    # (b) segments and local orientation; the segsum count runs from here
-    # to the end of (h): the Hough votes and the BA's sums
+    # (b) segments and local orientation; the segsum and linearize counts
+    # run from here to the end of (h): the Hough votes and the BA's
     segment_sum.launches = 0
+    ba_linearize.linearize.launches = 0
     img = torch.tensor(segment_image(), device=dev)
     with part("b_lines"):
         seg = lines.detect_segments(img, max_segments=64, n_rho=2048)
@@ -2756,6 +2781,7 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
         iterations=info["iterations"], lm_iterations_per_s=rate,
         initial_cost=info["initial_cost"], final_cost=info["final_cost"])
     launches["segsum"] = segment_sum.launches
+    launches["ba_linearize"] = ba_linearize.linearize.launches
     return launches, stats
 
 
@@ -2921,8 +2947,9 @@ def mesh_rank(rank, world, port, plan_path):
     """One rank of 13b: bring up the group through the launcher
     environment (gloo: the ranks share the card), run the sharded LM, the
     matcher, MatchGraphBuilder(mesh=), SLAMGPS(mesh=) and `cli sfm`, each
-    with the 2a count reset just before and read just after, and pickle
-    the results to result_<rank>.pkl beside the plan."""
+    with the 2a count (the LM: the linearize count) reset just before and
+    read just after, and pickle the results to result_<rank>.pkl beside
+    the plan."""
     import pickle
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -2938,7 +2965,7 @@ def mesh_rank(rank, world, port, plan_path):
     from metricsfm_tpu_torch.models.database import Database
     from metricsfm_tpu_torch.models.match_graph import (MatchGraphBuilder,
                                                         candidates_all)
-    from metricsfm_tpu_torch.ops import matching, np_geom
+    from metricsfm_tpu_torch.ops import ba_linearize, matching, np_geom
     from metricsfm_tpu_torch.parallel import mesh as pm
 
     pm.initialize_distributed(device=plan["device"],
@@ -2948,7 +2975,9 @@ def mesh_rank(rank, world, port, plan_path):
     out = {"backend": mesh.backend, "device": str(dev),
            "card": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                     else "cpu")}
+    ba_linearize.linearize.launches = 0
     out["lm"] = mesh_sharded_lm(mesh, plan)
+    out["linearize_launches"] = ba_linearize.linearize.launches
     out["matcher"] = mesh_matcher(mesh, plan)
 
     db = Database(plan["web_fold"], web_db_options(plan["web_kp"]),
@@ -3118,10 +3147,11 @@ def mesh_references(root, plan):
 
 def mesh_world1(plan):
     """13a: world size 1 through NCCL (gloo without a card) in this
-    process: solve_lm_sharded on LM_CASES (the segsum count reset just
-    before, read just after), then match_pairs_sharded through 2a (count
-    reset just before, read just after) against match_pair."""
+    process: solve_lm_sharded on LM_CASES (the segsum and linearize counts
+    reset just before, read just after), then match_pairs_sharded through
+    2a (count reset just before, read just after) against match_pair."""
     import torch.distributed as dist
+    from metricsfm_tpu_torch.ops import ba_linearize
     from metricsfm_tpu_torch.ops.segsum import segment_sum
     from metricsfm_tpu_torch.parallel import mesh as pm
 
@@ -3135,8 +3165,10 @@ def mesh_world1(plan):
         if mesh.backend != want:
             raise AssertionError(f"13a: backend {mesh.backend}, want {want}")
         segment_sum.launches = 0
+        ba_linearize.linearize.launches = 0
         out = {"backend": mesh.backend, "lm": mesh_sharded_lm(mesh, plan)}
         out["segsum_launches"] = segment_sum.launches
+        out["linearize_launches"] = ba_linearize.linearize.launches
         out["matcher"] = mesh_matcher(mesh, plan)
     finally:
         dist.destroy_process_group()
@@ -3275,9 +3307,10 @@ def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
                street_n=24, street_pts=1440, street_size=(STREET_W, STREET_H),
                sfm_views=8, sfm_size=(1024, 768), sfm_kp=4096,
                batch_pairs=32):
-    """13: the multi-GPU path.  Returns (2a launches of 13a and of every
-    rank of 13b, stats).  `device="cpu"` with small sizes rehearses it on
-    the CPU (gloo throughout)."""
+    """13: the multi-GPU path.  Returns (the launches of 13a and of every
+    rank of 13b: 2a's, 13a's segsum, the sharded LMs' linearize; stats).
+    `device="cpu"` with small sizes rehearses it on the CPU (gloo
+    throughout)."""
     import numpy as np
     from metricsfm_tpu_torch.utils import synth
 
@@ -3322,6 +3355,9 @@ def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
                  for label, *_ in LM_CASES}}
     gap = lm_gate(f"13a sharded LM, world 1 ({w1['backend']})", w1["lm"],
                   ref["lm"], fails, 3)
+    if w1["linearize_launches"] < need:
+        fails.append("13a sharded LM: no linearize launch")
+    lin = [w1["linearize_launches"]]
     timed_case = LM_CASES[0][0]
     stats["13a"]["lm"] = {"lm_iterations_per_s":
                           w1["lm"][timed_case]["lm_iterations_per_s"],
@@ -3343,6 +3379,9 @@ def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
             fails.append(f"{label}: backend {res['backend']}")
         gap = lm_gate(f"{label} sharded LM ({res['backend']}, "
                       f"{res['card']})", res["lm"], ref["lm"], fails, 4)
+        if res["linearize_launches"] < need:
+            fails.append(f"{label} sharded LM: no linearize launch")
+        lin.append(res["linearize_launches"])
         m = res["matcher"]
         if m["launches"] < need or m["mismatches"]:
             fails.append(f"{label} matcher: {m}")
@@ -3418,7 +3457,8 @@ def mesh_phase(card, device="cuda", ba=(1024, 131072), match=(32, 4096),
     stats["13b"].update(street_median_utm_err_m=street_err, cli_ate=ate,
                         graph_pairs=len(ref["graph"]),
                         seconds=w2_s)
-    return {"knn2": sum(launches), "segsum": w1["segsum_launches"]}, stats
+    return {"knn2": sum(launches), "segsum": w1["segsum_launches"],
+            "ba_linearize": sum(lin)}, stats
 
 
 # -- reproducibility (phase 14) ----------------------------------------------
@@ -3621,6 +3661,186 @@ def segsum_phase(dev="cuda"):
             "library_call_ms": row["library_call_ms"],
             "library_det_ms": row["library_det_ms"],
             "shape": f"{row['slots']} slots into {row['bins']} bins, K 9",
+            "cases": cases}
+
+
+LINEARIZE_SHAPES = (16384, 32768, 65536)   # the BA cell's point buckets
+BLOCKS = ("r", "Jpose", "Jintr", "Jpt")      # _linearize's outputs
+
+
+def linearize_problem(dev, n_pts, dtype=None, n_cams=64, views=16, keep=0.41,
+                      seed=19, shared=True):
+    """A problem for the linearize kernel, drawn on the CPU from `seed` and
+    moved to `dev` in `dtype` (the synthetic problem's own by default):
+    tracks of `views` slots of which ~`keep` are kept, radial distortion in
+    one camera model for every camera (`shared`, UAV mode) or one a camera
+    (web mode), track weights 1 and 2, 0.5 px of noise on the observations.
+    The defaults are the BA cell's widths: 64 cameras, V = 16, 41 % kept
+    (the survey's 6.6 observers a point)."""
+    import torch
+    from metricsfm_tpu_torch.utils import synth
+
+    prob = synth.synthetic_ba_problem(n_cams, n_pts, views, seed=seed,
+                                      device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    M = 1 if shared else n_cams
+    intrs = torch.stack([1000.0 * (1 + 0.01 * torch.randn(M, generator=g)),
+                         -0.03 + 0.01 * torch.randn(M, generator=g),
+                         0.01 + 0.005 * torch.randn(M, generator=g)], 1)
+    prob = prob._replace(
+        intrs=intrs, cam_model=(torch.zeros(n_cams, dtype=torch.int64)
+                                if shared else prob.cam_model),
+        track_mask=torch.rand(prob.track_mask.shape, generator=g) < keep,
+        track_weight=torch.where(torch.rand(n_pts, generator=g) < 0.5,
+                                 2.0, 1.0),
+        track_uv=prob.track_uv + 0.5 * torch.randn(prob.track_uv.shape,
+                                                   generator=g))
+    dtype = dtype or prob.points.dtype
+    floats = ("poses", "intrs", "points", "track_uv", "track_weight")
+    return prob._replace(**{k: getattr(prob, k).to(dev, dtype)
+                            for k in floats},
+                         **{k: getattr(prob, k).to(dev)
+                            for k in prob._fields if k not in floats})
+
+
+def linearize_bound(prob):
+    """The linearize kernel's bound: bytes, each input a slot needs read
+    once (the mask of every slot; camera index and observation of the kept
+    ones; points, track weights, poses, models once) and the four outputs
+    written once; its ~400 flops a slot are far below the card's rate."""
+    es = prob.points.element_size()
+    P, V = prob.track_cam.shape
+    kept = int(prob.track_mask.sum())
+    C, M = prob.n_cameras, prob.n_models
+    nbytes = (P * V + kept * (8 + 2 * es) + P * 4 * es + C * (6 * es + 8)
+              + M * 3 * es + P * V * 26 * es)
+    b = bound(400 * kept, 67e12, nbytes)
+    b["nbytes"] = nbytes
+    return b
+
+
+def huber_rescaled(blocks, delta):
+    """(r, Jpose, Jintr, Jpt) linearized without the Huber weight, each
+    slot scaled in f64 by sqrt(rho'(s)) of s = |r|^2 of its own residual
+    in these blocks: what the weighted linearization gives from them."""
+    import torch
+
+    r = blocks[0].double()
+    s = torch.sum(r * r, dim=-1, keepdim=True)
+    w = torch.where(s <= delta * delta, 1.0,
+                    torch.sqrt(delta / torch.sqrt(torch.clamp(s, min=1e-20))))
+    return [r * w] + [b.double() * w[..., None] for b in blocks[1:]]
+
+
+def huber_errors(got, raw, delta, where):
+    """Per block, the largest difference at the slots `where` between the
+    weighted linearization `got` and `huber_rescaled(raw, delta)`, relative
+    to the block's largest entry there."""
+    errs = []
+    for k, h in zip(got, huber_rescaled(raw, delta)):
+        k, h = k[where].double(), h[where]
+        errs.append(float((k - h).abs().max() / h.abs().max()))
+    return errs
+
+
+def linearize_phase(shapes=LINEARIZE_SHAPES):
+    """3: the linearize kernel (ops/csrc/ba_linearize.cu) against its plain
+    version (vmap(jacfwd), ba/lm._linearize_plain) at the BA cell's slot
+    counts (64 cameras, P = 16,384-65,536 points x V = 16).  Per block (r,
+    Jpose, Jintr, Jpt), errors relative to the block's largest entry.  f32
+    without the Huber weight: the kernel within twice the f32 plain
+    version's own error and 1e-6 of the plain version run in f64 on the
+    same values.  f32 with it (delta 1 px): within 1e-6 of its own
+    unweighted blocks scaled by the weight of their residual
+    (`huber_rescaled`).  The weight is not held to the f64 truth in f32:
+    r = projection - observation loses ~1e-4 of itself to rounding at
+    |r| ~ 1 px of ~2e3, in both versions, and the weight carries it into
+    every block, so their maxima over 0.1-0.4 M slots are rounding noise
+    (1.4e-5 to 1.05e-4 for the plain version in f32 on the CPU, 3e-7 to
+    3e-6 without the weight).  f64 (P = 16,384) with the weight: within
+    1e-12 of the plain version.  Masked slots zero; bit-equal over 3
+    launches.  Timed (kernel: device time in a CUDA graph and calls back
+    to back; plain version: calls) beside the bound.  Returns the table
+    row: the middle shape, every shape listed."""
+    import torch
+    from metricsfm_tpu_torch.ba import lm
+
+    cfg = lm.LMConfig(huber_delta=1.0)
+    off = lm.LMConfig(huber_delta=float("inf"))    # every weight 1
+    cases = []
+    for n_pts in shapes:
+        prob = linearize_problem("cuda", n_pts)
+        kept = prob.track_mask
+        got = [lm._linearize(prob, cfg) for _ in range(3)]
+        raw = lm._linearize(prob, off)
+        plain = lm._linearize_plain(prob, off)
+        p64 = prob._replace(**{k: getattr(prob, k).double() for k in
+                               ("poses", "intrs", "points", "track_uv",
+                                "track_weight")})
+        truth = lm._linearize_plain(p64, off)
+        s = torch.sum(raw[0] * raw[0], dim=-1)[kept]
+        case = {"points": n_pts, "slots": kept.numel(),
+                "kept": int(kept.sum()),
+                "huber_slots": int((s > 1.0).sum()),
+                "bit_equal_repeats": all(
+                    torch.equal(a, b) for g in got[1:]
+                    for a, b in zip(g, got[0])),
+                "masked_zero": all(bool((g[~kept] == 0).all())
+                                   for g in got[0] + raw)}
+        for name, k, p, t in zip(BLOCKS, raw, plain, truth):
+            k, p, t = (x[kept].double() for x in (k, p, t))
+            scale = float(t.abs().max())
+            case[f"{name}_rel_err"] = float((k - t).abs().max()) / scale
+            case[f"{name}_plain_rel_err"] = float((p - t).abs().max()) / scale
+            if case[f"{name}_rel_err"] > 2 * case[f"{name}_plain_rel_err"] \
+                    + 1e-6:
+                raise AssertionError(f"linearize {n_pts} points, {name}: "
+                                     f"{case}")
+        for name, e in zip(BLOCKS, huber_errors(got[0], raw, 1.0, kept)):
+            case[f"{name}_huber_err"] = e
+            if e > 1e-6:
+                raise AssertionError(f"linearize {n_pts} points, {name} "
+                                     f"weighted: {case}")
+        del plain, truth, got, raw
+        if n_pts == shapes[0]:
+            got = lm._linearize(p64, cfg)
+            want = lm._linearize_plain(p64, cfg)
+            case["f64_rel_err"] = max(
+                float((a - b)[kept].abs().max() / b[kept].abs().max())
+                for a, b in zip(got, want))
+            if case["f64_rel_err"] > 1e-12:
+                raise AssertionError(f"linearize f64: {case}")
+            del got, want
+        if not (case["bit_equal_repeats"] and case["masked_zero"]
+                and case["huber_slots"]):
+            raise AssertionError(f"linearize {n_pts} points: {case}")
+        case["ms"] = graph_time_ms(lambda: lm._linearize(prob, cfg))
+        case["call_ms"] = cuda_time_ms(lambda: lm._linearize(prob, cfg))
+        case["plain_ms"] = cuda_time_ms(
+            lambda: lm._linearize_plain(prob, cfg), reps=5, warmup=1)
+        case.update(linearize_bound(prob))
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        errs = [[round(case[n + tail], 9) for n in BLOCKS]
+                for tail in ("_rel_err", "_plain_rel_err", "_huber_err")]
+        print(f"  linearize {n_pts} x 16 slots ({case['kept']} kept, "
+              f"{case['huber_slots']} above delta): kernel "
+              f"{case['ms']:.4f} ms device, {case['call_ms']:.4f} ms a call;"
+              f" plain {case['plain_ms']:.3f} ms; {bound_text(case)}, "
+              f"{100 * case['share_of_bound']:.1f} %; errors unweighted "
+              f"{errs[0]} (plain f32 {errs[1]}), weighted {errs[2]}",
+              flush=True)
+        cases.append(case)
+    row = cases[len(cases) // 2]
+    return {"name": "ba_linearize", "route": "cuda",
+            "source": "metricsfm_tpu_torch/ops/csrc/ba_linearize.cu",
+            "replaces": "none: a port-only kernel (vmap(jacfwd) of the "
+                        "reprojection residual in ba/lm.py)",
+            "max_rel_err": max(c[n + "_rel_err"] for c in cases
+                               for n in BLOCKS),
+            "ms": row["ms"], "call_ms": row["call_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "shape": f"{row['slots']} slots ({row['kept']} kept), V 16",
             "cases": cases}
 
 
@@ -3999,7 +4219,7 @@ def repro_phase(mesh_stats, web, device="cuda", max_kp=4096, D=128,
 
 
 def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate",
-                       "segsum")):
+                       "segsum", "ba_linearize")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
     from metricsfm_tpu_torch.ops import cuda_build
@@ -4048,7 +4268,8 @@ def main(argv=None):
     with phase("2 build kernels"):
         build_phase()
     with phase("3 kernels vs plain"):
-        rows = [knn2_phase(), knn2_int8_phase()] + sgm_phase()
+        rows = [knn2_phase(), knn2_int8_phase()] + sgm_phase() \
+            + [linearize_phase()]
     if args.skip_e2e:
         return 0
     with phase("4 main path: cli sfm"):

@@ -3,8 +3,12 @@
 Counterpart of metricsfm_tpu/ba/lm.py (replacing Ceres DENSE_SCHUR +
 Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
 
-* Per-observation 2-vector residuals and Jacobians come from one
-  ``torch.func.vmap(jacfwd)`` over the flattened (P, V) track tensor.
+* Per-observation 2-vector residuals and Jacobians, scaled by the track
+  weights, the mask and the robust weights, come from one launch of the
+  hand-written kernel ``ops/csrc/ba_linearize.cu`` (``ops.ba_linearize``:
+  analytic derivatives, masked slots zero) on the card, and on the CPU
+  from its plain version, one ``torch.func.vmap(jacfwd)`` over the
+  flattened (P, V) track tensor (the JAX package's composition).
 * Huber robustness is IRLS: residual/Jacobian rows scaled by sqrt(rho'(s)).
 * Elimination: point blocks H_pp are (P, 3, 3) closed-form inverses; the
   reduced camera system S (6C+3M dofs) is assembled from camera- and
@@ -56,7 +60,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import jacfwd, vmap
 
-from ..ops import projection
+from ..ops import ba_linearize, projection
 from ..ops.segsum import SegmentPlan, make_plan, segment_sum
 from ..utils.tracing import span
 from .problem import BAProblem
@@ -184,14 +188,32 @@ def robust_weights(r, delta):
     return torch.sqrt(w2)
 
 
-def _linearize(problem: BAProblem, cfg: LMConfig):
+def _linearize_plain(problem: BAProblem, cfg: LMConfig):
     """_obs_jacobians' r, Jpose, Jintr and Jpt, each scaled by the robust
-    weights sqrt(rho'(s))."""
+    weights sqrt(rho'(s)): the plain version of the linearize kernel."""
+    r, Jpo, Jin, Jpt = _obs_jacobians(problem)
+    rw = robust_weights(r, cfg.huber_delta)[..., None]
+    return (r * rw, Jpo * rw[..., None], Jin * rw[..., None],
+            Jpt * rw[..., None])
+
+
+def _linearize(problem: BAProblem, cfg: LMConfig):
+    """r (P,V,2), Jpose (P,V,2,6), Jintr (P,V,2,3) and Jpt (P,V,2,3) of
+    every observation slot, scaled by sqrt(track_weight), the mask and the
+    robust weights sqrt(rho'(s)).  CUDA tensors: one launch of the
+    ops/csrc/ba_linearize.cu kernel (or it raises); CPU tensors:
+    `_linearize_plain`."""
     with span("ba/lm/linearize"):
-        r, Jpo, Jin, Jpt = _obs_jacobians(problem)
-        rw = robust_weights(r, cfg.huber_delta)[..., None]
-        return (r * rw, Jpo * rw[..., None], Jin * rw[..., None],
-                Jpt * rw[..., None])
+        dev = problem.points.device.type
+        if dev == "cuda":
+            return ba_linearize.linearize(
+                problem.poses, problem.intrs, problem.points,
+                problem.cam_model, problem.track_cam, problem.track_uv,
+                problem.track_weight, problem.track_mask, cfg.huber_delta)
+        if dev == "cpu":
+            return _linearize_plain(problem, cfg)
+        raise ValueError(f"_linearize has no implementation for device "
+                         f"{dev!r}")
 
 
 def _host(x, name: str, to=float):

@@ -1,0 +1,21 @@
+"""Launches of the linearize kernel (``ops/csrc/ba_linearize.cu``) per LM
+iteration: device events whose name holds the kernel's, counted over the
+traced solves.  Every LM iteration linearizes once, so a program that
+linearizes through the kernel reads 1.0; one that does not has no such
+event and reads nothing."""
+import re
+
+LAYER = "kernels (ops/csrc)"
+UNIT = "launches/iter"
+MOVES = "ba_solves_per_min"
+SOURCE = "device_trace"
+PATTERN = r"ba_linearize_kernel"
+
+
+def read(record):
+    tr = record["trace"]
+    rx = re.compile(PATTERN)
+    n = sum(1 for name, _, _ in tr.device if rx.search(name))
+    if not n or not getattr(tr, "iterations", 0):
+        return None
+    return n / tr.iterations
