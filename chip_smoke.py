@@ -1381,6 +1381,21 @@ def volume_phase(D=128, runs=2):
                       "valid_differs_from_fused": differ}
 
 
+# The reduce kernel's launches by path, each path's timed run (a path that
+# solves its BAs only by PCG launches none): read into the kernel table
+REDUCE_SLOTS_LAUNCHES = {}
+
+
+def reduce_slots_count(path=None):
+    """Reset the reduce kernel's launch count (`path` None), or keep the
+    count since the reset as `path`'s."""
+    from metricsfm_tpu_torch.ops import ba_reduce_slots
+    if path is None:
+        ba_reduce_slots.reduce_slots.launches = 0
+    else:
+        REDUCE_SLOTS_LAUNCHES[path] = ba_reduce_slots.reduce_slots.launches
+
+
 def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
     """Run `cli sfm` on a rendered scene `runs` times (fresh folders; the
     first run warms CUDA and library initialization, the last is timed);
@@ -1406,6 +1421,7 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             matching.knn2_gather.launches = 0
             segment_sum.launches = 0
             ba_linearize.linearize.launches = 0
+            reduce_slots_count()
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
                                "all", "--no-resize", "--max-kp",
@@ -1415,6 +1431,7 @@ def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             launches = {"knn2": matching.knn2_gather.launches,
                         "segsum": segment_sum.launches,
                         "ba_linearize": ba_linearize.linearize.launches}
+            reduce_slots_count("sfm")
         finally:
             shutil.rmtree(fold, ignore_errors=True)
         if not scenes:
@@ -1493,6 +1510,7 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
             matching.knn2_gather.launches = 0
             segment_sum.launches = 0
             ba_linearize.linearize.launches = 0
+            reduce_slots_count()
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--no-resize", "--max-kp",
                                str(max_kp), "--device", "cuda"]
@@ -1502,6 +1520,7 @@ def web_path_phase(n_cams=24, width=1024, height=768, max_kp=4096,
             launches = {"knn2": matching.knn2_gather.launches,
                         "segsum": segment_sum.launches,
                         "ba_linearize": ba_linearize.linearize.launches}
+            reduce_slots_count("web sfm")
             peak = torch.cuda.max_memory_allocated()
             # what the run stored: the vocabulary, the word bags, renders;
             # the candidates before and after the word-seed gate are
@@ -1614,6 +1633,7 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             matching.knn2_gather.launches = 0
             segment_sum.launches = 0
             ba_linearize.linearize.launches = 0
+            reduce_slots_count()
             five_point.essential_ransac_5pt.calls = 0
             t0 = time.perf_counter()
             scenes = cli.main(["sfm", fold, "--mode", "web", "--matching",
@@ -1624,6 +1644,7 @@ def exif_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
             launches = {"knn2": matching.knn2_gather.launches,
                         "segsum": segment_sum.launches,
                         "ba_linearize": ba_linearize.linearize.launches}
+            reduce_slots_count("calibrated sfm")
             calls_5pt = five_point.essential_ransac_5pt.calls
         finally:
             shutil.rmtree(fold, ignore_errors=True)
@@ -1809,11 +1830,14 @@ def aerial_phase(rows=10, cols=20, hierarchical=False, matching="priori"):
     ops_matching.knn2_gather.launches = 0
     segment_sum.launches = 0
     ba_linearize.linearize.launches = 0
+    reduce_slots_count()
     scenes, sfm, n_verified, dt, (n_words, n_cand, n_kept) = \
         aerial_run(gt, cfg)
     launches = {"knn2": ops_matching.knn2_gather.launches,
                 "segsum": segment_sum.launches,
                 "ba_linearize": ba_linearize.linearize.launches}
+    reduce_slots_count(f"aerial {n_cams}"
+                       + (" " + matching if matching != "priori" else ""))
     peak = torch.cuda.max_memory_allocated()
     if not scenes:
         raise AssertionError("aerial: no model reconstructed")
@@ -2316,11 +2340,13 @@ def street_fixed_phase(n=1000, n_pts=50000, device="cuda"):
             torch.cuda.synchronize()
         segment_sum.launches = 0
         ba_linearize.linearize.launches = 0
+        reduce_slots_count()
         t0 = time.perf_counter()
         scene = cli.main(["slam", fold, "--device", device])
         dt = time.perf_counter() - t0
         launches = {"segsum": segment_sum.launches,
                     "ba_linearize": ba_linearize.linearize.launches}
+        reduce_slots_count("street")
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         err = street_gates(fold, gt, n)
     finally:
@@ -2377,6 +2403,7 @@ def street_rematch_phase(n=100, n_pts=6000, min_tracks=1000,
         matching.knn2_gather.launches = 0
         segment_sum.launches = 0
         ba_linearize.linearize.launches = 0
+        reduce_slots_count()
         t0 = time.perf_counter()
         pipe = slam_gps.SLAMGPS(street_preset(), device=device)
         with span("slam/run", sync=True):
@@ -2385,6 +2412,7 @@ def street_rematch_phase(n=100, n_pts=6000, min_tracks=1000,
         launches = {"knn2": matching.knn2_gather.launches,
                     "segsum": segment_sum.launches,
                     "ba_linearize": ba_linearize.linearize.launches}
+        reduce_slots_count("street re-match")
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         err = street_gates(fold, gt, n)
         und = os.listdir(os.path.join(fold, "mtpu_out", "undistort_images"))
@@ -2617,6 +2645,7 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
     # run from here to the end of (h): the Hough votes and the BA's
     segment_sum.launches = 0
     ba_linearize.linearize.launches = 0
+    reduce_slots_count()
     img = torch.tensor(segment_image(), device=dev)
     with part("b_lines"):
         seg = lines.detect_segments(img, max_segments=64, n_rho=2048)
@@ -2782,6 +2811,7 @@ def aux_phase(card, device="cuda", ba_cams=1024, ba_pts=131072):
         initial_cost=info["initial_cost"], final_cost=info["final_cost"])
     launches["segsum"] = segment_sum.launches
     launches["ba_linearize"] = ba_linearize.linearize.launches
+    reduce_slots_count("aux ops")
     return launches, stats
 
 
@@ -3166,9 +3196,11 @@ def mesh_world1(plan):
             raise AssertionError(f"13a: backend {mesh.backend}, want {want}")
         segment_sum.launches = 0
         ba_linearize.linearize.launches = 0
+        reduce_slots_count()
         out = {"backend": mesh.backend, "lm": mesh_sharded_lm(mesh, plan)}
         out["segsum_launches"] = segment_sum.launches
         out["linearize_launches"] = ba_linearize.linearize.launches
+        reduce_slots_count("13a sharded LM")
         out["matcher"] = mesh_matcher(mesh, plan)
     finally:
         dist.destroy_process_group()
@@ -3844,6 +3876,140 @@ def linearize_phase(shapes=LINEARIZE_SHAPES):
             "cases": cases}
 
 
+def reduce_slots_bound(prob):
+    """The reduce kernel's bound: bytes, every slot's r and Jacobians (26
+    values) read once, its W, U, camera and model rows (126) written
+    once, each point's point_mut read and its Hpp_inv and g_pt (12)
+    written once; its ~700 flops a slot are far below the card's rate."""
+    es = prob.points.element_size()
+    P, V = prob.track_cam.shape
+    nbytes = P * V * (26 + 126) * es + P * 13 * es
+    b = bound(700 * P * V, 67e12, nbytes)
+    b["nbytes"] = nbytes
+    return b
+
+
+REDUCE_NAMES = ("Hpp_inv", "g_pt", "W", "U", "cam", "model")
+
+
+def reduce_slots_errors(got, plain, truth, where):
+    """Per output of reduce_slots, (the kernel's `got`, the plain
+    version's `plain`) largest error against `truth` relative to truth's
+    largest entry; per-point outputs everywhere, per-slot outputs at the
+    slots `where`."""
+    out = {}
+    for name, k, p, t in zip(REDUCE_NAMES, got, plain, truth):
+        if name not in ("Hpp_inv", "g_pt"):
+            k, p, t = k[where], p[where], t[where]
+        k, p, t = k.double(), p.double(), t.double()
+        scale = float(t.abs().max())
+        out[name] = (float((k - t).abs().max()) / scale,
+                     float((p - t).abs().max()) / scale)
+    return out
+
+
+def reduce_slots_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
+    """3: the dense-Schur reduce kernel (ops/csrc/ba_reduce_slots.cu)
+    against its plain version (ops.ba_reduce_slots.reduce_slots_plain,
+    the einsums partial_camera_system ran before it) on the linearize
+    kernel's slots at the BA cell's slot counts (64 cameras, P = 16,384 -
+    65,536 points x V = 16, 41 % kept, a tenth of the points frozen,
+    Huber delta 1 px).  Per output, errors against the plain version run
+    in f64 on the same slots, relative to the output's largest entry: f32
+    within twice the f32 plain version's own error and 1e-6; f64 (P =
+    16,384) within 1e-12 of the plain version.  Masked slots zero;
+    bit-equal over 3 launches.  Timed (kernel: device time in a CUDA
+    graph and calls back to back; the plain version: calls; and
+    partial_camera_system with either) beside the bound.  Returns the
+    table row: the middle shape, every shape listed."""
+    import torch
+    from metricsfm_tpu_torch.ba import lm
+    from metricsfm_tpu_torch.ops import ba_reduce_slots as rs
+
+    cfg = lm.LMConfig(huber_delta=1.0)
+    cases = []
+    for n_pts in shapes:
+        prob = linearize_problem("cuda", n_pts)
+        g = torch.Generator(device="cuda").manual_seed(n_pts)
+        prob = prob._replace(point_mut=(torch.rand(
+            n_pts, generator=g, device="cuda") >= 0.1).to(prob.points.dtype))
+        kept = prob.track_mask
+        slots = lm._linearize(prob, cfg)
+        pm = prob.point_mut
+        got = [rs.reduce_slots(*slots, pm, lam) for _ in range(3)]
+        plain = rs.reduce_slots_plain(*slots, pm, lam)
+        truth = rs.reduce_slots_plain(*(s.double() for s in slots),
+                                      pm.double(), lam)
+        case = {"points": n_pts, "slots": kept.numel(),
+                "kept": int(kept.sum()),
+                "bit_equal_repeats": all(
+                    torch.equal(a, b) for g in got[1:]
+                    for a, b in zip(g, got[0])),
+                "masked_zero": all(bool((g[~kept] == 0).all())
+                                   for g in got[0][2:])}
+        for name, (ek, ep) in reduce_slots_errors(got[0], plain, truth,
+                                                  kept).items():
+            case[f"{name}_rel_err"], case[f"{name}_plain_rel_err"] = ek, ep
+            if ek > 2 * ep + 1e-6:
+                raise AssertionError(f"reduce_slots {n_pts} points, {name}: "
+                                     f"{case}")
+        del plain, truth, got
+        if n_pts == shapes[0]:
+            s64 = [s.double() for s in slots]
+            errs = reduce_slots_errors(
+                rs.reduce_slots(*s64, pm, lam),
+                rs.reduce_slots_plain(*s64, pm.double(), lam),
+                rs.reduce_slots_plain(*s64, pm.double(), lam), kept)
+            case["f64_rel_err"] = max(e[0] for e in errs.values())
+            if case["f64_rel_err"] > 1e-12:
+                raise AssertionError(f"reduce_slots f64: {case}")
+            del s64
+        if not (case["bit_equal_repeats"] and case["masked_zero"]):
+            raise AssertionError(f"reduce_slots {n_pts} points: {case}")
+        case["ms"] = graph_time_ms(lambda: rs.reduce_slots(*slots, pm, lam))
+        case["call_ms"] = cuda_time_ms(
+            lambda: rs.reduce_slots(*slots, pm, lam))
+        case["plain_ms"] = cuda_time_ms(
+            lambda: rs.reduce_slots_plain(*slots, pm, lam), reps=5, warmup=1)
+        plans = lm.make_plans(prob, cfg, False)
+        case["system_ms"] = cuda_time_ms(
+            lambda: lm.partial_camera_system(prob, lam, cfg, plans), reps=5,
+            warmup=1)
+        real = rs.reduce_slots
+        try:
+            rs.reduce_slots = rs.reduce_slots_plain
+            case["plain_system_ms"] = cuda_time_ms(
+                lambda: lm.partial_camera_system(prob, lam, cfg, plans),
+                reps=5, warmup=1)
+        finally:
+            rs.reduce_slots = real
+        case.update(reduce_slots_bound(prob))
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        errs = [[round(case[n + tail], 9) for n in REDUCE_NAMES]
+                for tail in ("_rel_err", "_plain_rel_err")]
+        print(f"  reduce_slots {n_pts} x 16 slots ({case['kept']} kept): "
+              f"kernel {case['ms']:.4f} ms device, {case['call_ms']:.4f} ms "
+              f"a call; plain {case['plain_ms']:.3f} ms; "
+              f"partial_camera_system {case['system_ms']:.3f} ms "
+              f"(plain {case['plain_system_ms']:.3f}); {bound_text(case)}, "
+              f"{100 * case['share_of_bound']:.1f} %; errors {errs[0]} "
+              f"(plain f32 {errs[1]})", flush=True)
+        cases.append(case)
+    row = cases[len(cases) // 2]
+    return {"name": "ba_reduce_slots", "route": "cuda",
+            "source": "metricsfm_tpu_torch/ops/csrc/ba_reduce_slots.cu",
+            "replaces": "none: a port-only kernel (the per-slot einsums, "
+                        "_inv3x3 and _chol3x3 of partial_camera_system in "
+                        "ba/lm.py)",
+            "max_rel_err": max(c[n + "_rel_err"] for c in cases
+                               for n in REDUCE_NAMES),
+            "ms": row["ms"], "call_ms": row["call_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "shape": f"{row['slots']} slots ({row['kept']} kept), V 16",
+            "cases": cases}
+
+
 def lm_twice(label, prob, cfg):
     """solve_lm twice on the same problem: bit-equal info, poses and
     points.  Returns (bit-equal, info)."""
@@ -4219,7 +4385,7 @@ def repro_phase(mesh_stats, web, device="cuda", max_kp=4096, D=128,
 
 
 def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate",
-                       "segsum", "ba_linearize")):
+                       "segsum", "ba_linearize", "ba_reduce_slots")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
     from metricsfm_tpu_torch.ops import cuda_build
@@ -4269,7 +4435,7 @@ def main(argv=None):
         build_phase()
     with phase("3 kernels vs plain"):
         rows = [knn2_phase(), knn2_int8_phase()] + sgm_phase() \
-            + [linearize_phase()]
+            + [linearize_phase(), reduce_slots_phase()]
     if args.skip_e2e:
         return 0
     with phase("4 main path: cli sfm"):
@@ -4333,6 +4499,9 @@ def main(argv=None):
                               chain_launches):
             for k, n in path_launches.items():
                 launches[k] = launches.get(k, 0) + n
+        launches["ba_reduce_slots"] = sum(REDUCE_SLOTS_LAUNCHES.values())
+        print(f"  ba_reduce_slots launches by path: {REDUCE_SLOTS_LAUNCHES}",
+              flush=True)
         for row in rows:
             row["launches"] = launches[row["name"]]
             if row["name"] == "knn2_int8":   # its quantize pass, same row
@@ -4367,6 +4536,7 @@ def main(argv=None):
                            if k != "stages"},
                 "street_rematch": {k: v for k, v in rematch_stats.items()
                                    if k != "stages"},
+                "reduce_slots_launches": REDUCE_SLOTS_LAUNCHES,
                 "aux": aux_stats, "mesh": mesh_stats,
                 "repro": repro_stats}), flush=True)
         print(json.dumps({"kernels": rows}), flush=True)

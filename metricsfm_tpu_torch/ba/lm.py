@@ -13,7 +13,12 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
 * Elimination: point blocks H_pp are (P, 3, 3) closed-form inverses; the
   reduced camera system S (6C+3M dofs) is assembled from camera- and
   model-indexed sums and one (6C+3M, 3P) x (3P, 6C+3M) product for the
-  Schur fill.
+  Schur fill.  In the dense path every slot's products (its JᵀJ blocks
+  and rhs row, W, its Cholesky-folded U) and every point's inverse come
+  from one launch of the hand-written kernel
+  ``ops/csrc/ba_reduce_slots.cu`` (``ops.ba_reduce_slots``) on the card,
+  and on the CPU from its plain version, the einsums grouped into the same
+  rows.
 * Every sum over observation slots (or over triples sharing a camera)
   goes through ``ops.segsum.segment_sum`` with the plans of `BAPlans`,
   made once per solve (the index sets do not change across iterations):
@@ -60,7 +65,9 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import jacfwd, vmap
 
-from ..ops import ba_linearize, projection
+from ..ops import ba_linearize, ba_reduce_slots, projection
+from ..ops.ba_reduce_slots import chol3x3 as _chol3x3
+from ..ops.ba_reduce_slots import inv3x3 as _inv3x3
 from ..ops.segsum import SegmentPlan, make_plan, segment_sum
 from ..utils.tracing import span
 from .problem import BAProblem
@@ -354,43 +361,6 @@ def _gps_prior_blocks(problem: BAProblem, triple_plan=None):
     return Hg, Ht, rhs_extra
 
 
-def _inv3x3(A, eps=1e-12):
-    """Closed-form batched 3x3 inverse (adjugate / det)."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    A11 = e * i - f * h
-    A12 = c * h - b * i
-    A13 = b * f - c * e
-    A21 = f * g - d * i
-    A22 = a * i - c * g
-    A23 = c * d - a * f
-    A31 = d * h - e * g
-    A32 = b * g - a * h
-    A33 = a * e - b * d
-    det = a * A11 + b * A21 + c * A31
-    det = torch.where(torch.abs(det) < eps, eps, det)
-    rows = torch.stack([torch.stack([A11, A12, A13], dim=-1),
-                        torch.stack([A21, A22, A23], dim=-1),
-                        torch.stack([A31, A32, A33], dim=-1)], dim=-2)
-    return rows / det[..., None, None]
-
-
-def _chol3x3(A, eps=1e-12):
-    """Closed-form batched 3x3 Cholesky (lower)."""
-    l11 = torch.sqrt(torch.clamp(A[..., 0, 0], min=eps))
-    l21 = A[..., 1, 0] / l11
-    l31 = A[..., 2, 0] / l11
-    l22 = torch.sqrt(torch.clamp(A[..., 1, 1] - l21 * l21, min=eps))
-    l32 = (A[..., 2, 1] - l31 * l21) / l22
-    l33 = torch.sqrt(torch.clamp(A[..., 2, 2] - l31 * l31 - l32 * l32,
-                                 min=eps))
-    z = torch.zeros_like(l11)
-    return torch.stack([torch.stack([l11, z, z], dim=-1),
-                        torch.stack([l21, l22, z], dim=-1),
-                        torch.stack([l31, l32, l33], dim=-1)], dim=-2)
-
-
 def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig,
                           plans: Optional[BAPlans] = None, reduce=None):
     """Linearize the tracks into the reduced camera system.
@@ -408,58 +378,34 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig,
 
     r, Jpo, Jin, Jpt = _linearize(problem, cfg)
     with span("ba/lm/reduce"):
-        # ---- gradient ----
-        g_cam = torch.cat([
-            segment_sum(torch.einsum("pvri,pvr->pvi", Jpo, r),
-                        plans.cam).reshape(-1),
-            segment_sum(torch.einsum("pvri,pvr->pvi", Jin, r),
-                        plans.model).reshape(-1)])
-        g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)   # (P,3)
+        # every slot's products in one pass (ops/ba_reduce_slots): the
+        # point blocks' inverses, W = [Jpose|Jintr]^T Jpt, its Cholesky-
+        # folded U (Hpp_inv = L L^T) and the camera / model rows
+        # [JᵀJ blocks | rv], rv = W Hpp_inv g_pt - [Jpose|Jintr]^T r
+        Hpp_inv, g_pt, W, U, cam_rows, model_rows = \
+            ba_reduce_slots.reduce_slots(r, Jpo, Jin, Jpt, problem.point_mut,
+                                         lam)
+        cam = segment_sum(cam_rows, plans.cam)                      # (C,60)
+        model = segment_sum(model_rows, plans.model)                # (M,12)
+        Hcc_pose = cam[:, :36].reshape(C, 6, 6)
+        Hcc_pi = cam[:, 36:54].reshape(C, 6, 3)
+        Hcc_intr = model[:, :9].reshape(M, 3, 3)
 
-        # ---- point blocks ----
-        eye3 = torch.eye(3, dtype=dtype, device=dev)
-        Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
-        diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
-        damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
-        Hpp_d = Hpp + torch.diag_embed(damp)
-        # frozen points: identity block (benign inverse; d_pt forced 0 later)
-        pm = problem.point_mut[:, None, None]
-        Hpp_d = Hpp_d * pm + eye3 * (1.0 - pm)
-        Hpp_inv = _inv3x3(Hpp_d)
-
-        # ---- camera block-diagonals ----
-        Hcc_pose = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jpo),
-                               plans.cam)
-        Hcc_intr = segment_sum(torch.einsum("pvri,pvrj->pvij", Jin, Jin),
-                               plans.model)
-        Hcc_pi = segment_sum(torch.einsum("pvri,pvrj->pvij", Jpo, Jin),
-                             plans.cam)
-
+        # ---- camera block-diagonals: each entry written once, into zeros
         S = torch.zeros((D, D), dtype=dtype, device=dev)
-        ar6 = torch.arange(6, device=dev)
-        ar3 = torch.arange(3, device=dev)
-        pose_rows = 6 * torch.arange(C, device=dev)[:, None] + ar6     # (C,6)
-        intr_rows = 6 * C + 3 * torch.arange(M, device=dev)[:, None] + ar3
-        pi_cols = 6 * C + 3 * problem.cam_model[:, None] + ar3         # (C,3)
-        # each (row, col) below is written once, into zeros: exact in any order
-        S.index_put_((pose_rows[:, :, None], pose_rows[:, None, :]), Hcc_pose,
-                     accumulate=True)
-        S.index_put_((intr_rows[:, :, None], intr_rows[:, None, :]), Hcc_intr,
-                     accumulate=True)
-        S.index_put_((pose_rows[:, :, None], pi_cols[:, None, :]), Hcc_pi,
-                     accumulate=True)
-        S.index_put_((pi_cols[:, :, None], pose_rows[:, None, :]),
-                     Hcc_pi.transpose(-1, -2), accumulate=True)
+        torch.diagonal(S[:6 * C, :6 * C].view(C, 6, C, 6), dim1=0,
+                       dim2=2).copy_(Hcc_pose.permute(1, 2, 0))
+        torch.diagonal(S[6 * C:, 6 * C:].view(M, 3, M, 3), dim1=0,
+                       dim2=2).copy_(Hcc_intr.permute(1, 2, 0))
+        S_pi = S[:6 * C, 6 * C:]
+        S_pi.view(C, 6, M, 3)[torch.arange(C, device=dev), :,
+                              problem.cam_model] = Hcc_pi
+        S[6 * C:, :6 * C] = S_pi.T
 
         # ---- Schur subtraction: S -= sum_p E_p Hpp_inv E_p^T ----
-        # W (P,V,9,3) = [Jpose|Jintr]^T Jpt per view; mutable points only.
-        Jc = torch.cat([Jpo, Jin], dim=-1)                           # (P,V,2,9)
-        W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) \
-            * problem.point_mut[:, None, None, None]
-        # Hpp_inv = L L^T; per point, fold its views into per-camera /
-        # per-model factors G (P, C, 6, 3) and (P, M, 3, 3) — segment sums
-        # over (point, camera) bins — so the Schur fill is one G G^T product
-        U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))     # (P,V,9,3)
+        # per point, fold its views' U into per-camera / per-model factors
+        # G (P, C, 6, 3) and (P, M, 3, 3) — segment sums over (point,
+        # camera) bins — so the Schur fill is one G G^T product
         G_pose = segment_sum(U[:, :, :6], plans.point_cam).reshape(
             P, C, 6, 3)
         G_intr = segment_sum(U[:, :, 6:], plans.point_model).reshape(
@@ -469,12 +415,8 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig,
         G = torch.cat([Gp, Gi], dim=0)                                # (D,3P)
         S = S - G @ G.T
 
-        # ---- rhs: -(g_cam - E Hpp_inv g_pt) ----
-        y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
-        corr = torch.einsum("pvij,pj->pvi", W, y)                     # (P,V,9)
-        rhs = -g_cam + torch.cat([
-            segment_sum(corr[..., :6], plans.cam).reshape(-1),
-            segment_sum(corr[..., 6:], plans.model).reshape(-1)])
+        # ---- rhs: -(g_cam - E Hpp_inv g_pt), the sums of rv ----
+        rhs = torch.cat([cam[:, 54:].reshape(-1), model[:, 9:].reshape(-1)])
         aux = {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
         if reduce is not None:
             S, rhs = _reduce_cat(reduce, S, rhs)

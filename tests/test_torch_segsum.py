@@ -404,8 +404,6 @@ ALLOWED = {
         "0/1 word counts in f32, exact below 2^24",
     ("ops/kmeans.py", "similarity_chunked", "index_add_"):
         "0/1 document frequencies in f32, exact below 2^24",
-    ("ba/lm.py", "partial_camera_system", "index_put_"):
-        "the camera / model blocks of S: unique indices into zeros",
     ("ba/lm.py", "solve_reduced", "index_put"):
         "one GPS / pose-prior block per camera: unique indices",
 }

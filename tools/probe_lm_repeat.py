@@ -3,7 +3,10 @@
 Phase 12h's problem (synthetic_ba_problem at 1,024 cameras x 131,072
 points, exact observations) and phase 13's copy of it with 0.5 px of
 seeded observation noise (chip_smoke.mesh_ba_problem), each solved twice
-with 12h's LMConfig cut to 1 ... 8 iterations.  On CUDA index_add_ sums
+with 12h's LMConfig (PCG) cut to 1 ... 8 iterations; and a dense-Schur
+problem (64 cameras x 32,768 points, V 6, 0.5 px of noise) the same way
+with LMConfig(rtol=0), which runs the dense path's linearize and reduce
+kernels and its segment sums.  On CUDA index_add_ sums
 through atomics in a varying order, so two calls need not agree bit for
 bit.  Prints, for each pair of calls, the gaps of chip_smoke.lm_gaps:
 final cost and rms_px relative, poses raw and modulo the problem's scale
@@ -26,17 +29,21 @@ import chip_smoke  # noqa: E402
 
 def main():
     import torch
-    from metricsfm_tpu_torch.ba.lm import solve_lm
+    from metricsfm_tpu_torch.ba.lm import LMConfig, solve_lm
     from metricsfm_tpu_torch.utils import synth
 
     print(chip_smoke.gpu_line(), flush=True)
-    cfg = chip_smoke.mesh_lm_config()
+    pcg = chip_smoke.mesh_lm_config()
+    dense = LMConfig(max_iterations=pcg.max_iterations, rtol=0.0)
     problems = {
-        "exact": synth.synthetic_ba_problem(1024, 131072, device="cuda"),
-        "noisy": chip_smoke.mesh_ba_problem("cuda", 1024, 131072)}
-    solve_lm(problems["exact"], cfg._replace(max_iterations=1))  # warm-up
+        "exact": (synth.synthetic_ba_problem(1024, 131072, device="cuda"),
+                  pcg),
+        "noisy": (chip_smoke.mesh_ba_problem("cuda", 1024, 131072), pcg),
+        "dense": (chip_smoke.mesh_ba_problem("cuda", 64, 32768), dense)}
+    for prob, cfg in problems.values():                        # warm-up
+        solve_lm(prob, cfg._replace(max_iterations=1))
     rows = []
-    for name, prob in problems.items():
+    for name, (prob, cfg) in problems.items():
         for n in range(1, cfg.max_iterations + 1):
             runs = []
             for _ in range(2):
