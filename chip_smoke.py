@@ -1381,19 +1381,26 @@ def volume_phase(D=128, runs=2):
                       "valid_differs_from_fused": differ}
 
 
-# The reduce kernel's launches by path, each path's timed run (a path that
-# solves its BAs only by PCG launches none): read into the kernel table
+# The reduce kernel's launches by path, each path's timed run: read into
+# the kernel table.  Both camera solvers launch it once an LM iteration,
+# as they launch the linearize kernel
 REDUCE_SLOTS_LAUNCHES = {}
 
 
 def reduce_slots_count(path=None):
     """Reset the reduce kernel's launch count (`path` None), or keep the
-    count since the reset as `path`'s."""
-    from metricsfm_tpu_torch.ops import ba_reduce_slots
+    count since the reset as `path`'s; it must equal the linearize
+    kernel's, reset with it."""
+    from metricsfm_tpu_torch.ops import ba_linearize, ba_reduce_slots
+    n = ba_reduce_slots.reduce_slots.launches
     if path is None:
         ba_reduce_slots.reduce_slots.launches = 0
-    else:
-        REDUCE_SLOTS_LAUNCHES[path] = ba_reduce_slots.reduce_slots.launches
+        return
+    REDUCE_SLOTS_LAUNCHES[path] = n
+    if n != ba_linearize.linearize.launches:
+        raise AssertionError(
+            f"{path}: {n} reduce_slots launches, "
+            f"{ba_linearize.linearize.launches} linearize launches")
 
 
 def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
@@ -3775,9 +3782,17 @@ def huber_errors(got, raw, delta, where):
     return errs
 
 
+def linearize_plain(prob, cfg):
+    """ops.ba_linearize's plain version of `prob`'s slots, on any device."""
+    from metricsfm_tpu_torch.ops import ba_linearize
+    return ba_linearize.linearize_plain(
+        prob.poses, prob.intrs, prob.points, prob.cam_model, prob.track_cam,
+        prob.track_uv, prob.track_weight, prob.track_mask, cfg.huber_delta)
+
+
 def linearize_phase(shapes=LINEARIZE_SHAPES):
     """3: the linearize kernel (ops/csrc/ba_linearize.cu) against its plain
-    version (vmap(jacfwd), ba/lm._linearize_plain) at the BA cell's slot
+    version (vmap(jacfwd), `linearize_plain`) at the BA cell's slot
     counts (64 cameras, P = 16,384-65,536 points x V = 16).  Per block (r,
     Jpose, Jintr, Jpt), errors relative to the block's largest entry.  f32
     without the Huber weight: the kernel within twice the f32 plain
@@ -3805,11 +3820,11 @@ def linearize_phase(shapes=LINEARIZE_SHAPES):
         kept = prob.track_mask
         got = [lm._linearize(prob, cfg) for _ in range(3)]
         raw = lm._linearize(prob, off)
-        plain = lm._linearize_plain(prob, off)
+        plain = linearize_plain(prob, off)
         p64 = prob._replace(**{k: getattr(prob, k).double() for k in
                                ("poses", "intrs", "points", "track_uv",
                                 "track_weight")})
-        truth = lm._linearize_plain(p64, off)
+        truth = linearize_plain(p64, off)
         s = torch.sum(raw[0] * raw[0], dim=-1)[kept]
         case = {"points": n_pts, "slots": kept.numel(),
                 "kept": int(kept.sum()),
@@ -3836,7 +3851,7 @@ def linearize_phase(shapes=LINEARIZE_SHAPES):
         del plain, truth, got, raw
         if n_pts == shapes[0]:
             got = lm._linearize(p64, cfg)
-            want = lm._linearize_plain(p64, cfg)
+            want = linearize_plain(p64, cfg)
             case["f64_rel_err"] = max(
                 float((a - b)[kept].abs().max() / b[kept].abs().max())
                 for a, b in zip(got, want))
@@ -3849,7 +3864,7 @@ def linearize_phase(shapes=LINEARIZE_SHAPES):
         case["ms"] = graph_time_ms(lambda: lm._linearize(prob, cfg))
         case["call_ms"] = cuda_time_ms(lambda: lm._linearize(prob, cfg))
         case["plain_ms"] = cuda_time_ms(
-            lambda: lm._linearize_plain(prob, cfg), reps=5, warmup=1)
+            lambda: linearize_plain(prob, cfg), reps=5, warmup=1)
         case.update(linearize_bound(prob))
         case["share_of_bound"] = case["bound_ms"] / case["ms"]
         errs = [[round(case[n + tail], 9) for n in BLOCKS]
@@ -3909,9 +3924,10 @@ def reduce_slots_errors(got, plain, truth, where):
 
 
 def reduce_slots_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
-    """3: the dense-Schur reduce kernel (ops/csrc/ba_reduce_slots.cu)
-    against its plain version (ops.ba_reduce_slots.reduce_slots_plain,
-    the einsums partial_camera_system ran before it) on the linearize
+    """3: the reduce kernel both camera solvers run
+    (ops/csrc/ba_reduce_slots.cu) against its plain version
+    (ops.ba_reduce_slots.reduce_slots_plain, the einsums
+    partial_camera_system and _track_terms ran before it) on the linearize
     kernel's slots at the BA cell's slot counts (64 cameras, P = 16,384 -
     65,536 points x V = 16, 41 % kept, a tenth of the points frozen,
     Huber delta 1 px).  Per output, errors against the plain version run
@@ -3919,9 +3935,10 @@ def reduce_slots_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
     within twice the f32 plain version's own error and 1e-6; f64 (P =
     16,384) within 1e-12 of the plain version.  Masked slots zero;
     bit-equal over 3 launches.  Timed (kernel: device time in a CUDA
-    graph and calls back to back; the plain version: calls; and
-    partial_camera_system with either) beside the bound.  Returns the
-    table row: the middle shape, every shape listed."""
+    graph and calls back to back; the plain version: calls; and the dense
+    path's partial_camera_system and the PCG path's _track_terms with
+    either) beside the bound.  Returns the table row: the middle shape,
+    every shape listed."""
     import torch
     from metricsfm_tpu_torch.ba import lm
     from metricsfm_tpu_torch.ops import ba_reduce_slots as rs
@@ -3972,17 +3989,19 @@ def reduce_slots_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
         case["plain_ms"] = cuda_time_ms(
             lambda: rs.reduce_slots_plain(*slots, pm, lam), reps=5, warmup=1)
         plans = lm.make_plans(prob, cfg, False)
-        case["system_ms"] = cuda_time_ms(
-            lambda: lm.partial_camera_system(prob, lam, cfg, plans), reps=5,
-            warmup=1)
+        pcg = cfg._replace(cg_iterations=100)
+        pcg_plans = lm.make_plans(prob, pcg, False)
+        solvers = {
+            "system": lambda: lm.partial_camera_system(prob, lam, cfg, plans),
+            "track_terms": lambda: lm._track_terms(prob, lam, pcg, pcg_plans)}
         real = rs.reduce_slots
-        try:
-            rs.reduce_slots = rs.reduce_slots_plain
-            case["plain_system_ms"] = cuda_time_ms(
-                lambda: lm.partial_camera_system(prob, lam, cfg, plans),
-                reps=5, warmup=1)
-        finally:
-            rs.reduce_slots = real
+        for name, fn in solvers.items():
+            case[f"{name}_ms"] = cuda_time_ms(fn, reps=5, warmup=1)
+            try:
+                rs.reduce_slots = rs.reduce_slots_plain
+                case[f"plain_{name}_ms"] = cuda_time_ms(fn, reps=5, warmup=1)
+            finally:
+                rs.reduce_slots = real
         case.update(reduce_slots_bound(prob))
         case["share_of_bound"] = case["bound_ms"] / case["ms"]
         errs = [[round(case[n + tail], 9) for n in REDUCE_NAMES]
@@ -3991,7 +4010,9 @@ def reduce_slots_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
               f"kernel {case['ms']:.4f} ms device, {case['call_ms']:.4f} ms "
               f"a call; plain {case['plain_ms']:.3f} ms; "
               f"partial_camera_system {case['system_ms']:.3f} ms "
-              f"(plain {case['plain_system_ms']:.3f}); {bound_text(case)}, "
+              f"(plain {case['plain_system_ms']:.3f}); _track_terms "
+              f"{case['track_terms_ms']:.3f} ms (plain "
+              f"{case['plain_track_terms_ms']:.3f}); {bound_text(case)}, "
               f"{100 * case['share_of_bound']:.1f} %; errors {errs[0]} "
               f"(plain f32 {errs[1]})", flush=True)
         cases.append(case)
@@ -3999,8 +4020,8 @@ def reduce_slots_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
     return {"name": "ba_reduce_slots", "route": "cuda",
             "source": "metricsfm_tpu_torch/ops/csrc/ba_reduce_slots.cu",
             "replaces": "none: a port-only kernel (the per-slot einsums, "
-                        "_inv3x3 and _chol3x3 of partial_camera_system in "
-                        "ba/lm.py)",
+                        "_inv3x3 and _chol3x3 of partial_camera_system and "
+                        "_track_terms in ba/lm.py)",
             "max_rel_err": max(c[n + "_rel_err"] for c in cases
                                for n in REDUCE_NAMES),
             "ms": row["ms"], "call_ms": row["call_ms"],

@@ -1,24 +1,23 @@
-"""Schur-complement Levenberg-Marquardt bundle adjuster (dense path).
+"""Schur-complement Levenberg-Marquardt bundle adjuster.
 
 Counterpart of metricsfm_tpu/ba/lm.py (replacing Ceres DENSE_SCHUR +
 Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
 
 * Per-observation 2-vector residuals and Jacobians, scaled by the track
-  weights, the mask and the robust weights, come from one launch of the
-  hand-written kernel ``ops/csrc/ba_linearize.cu`` (``ops.ba_linearize``:
-  analytic derivatives, masked slots zero) on the card, and on the CPU
-  from its plain version, one ``torch.func.vmap(jacfwd)`` over the
-  flattened (P, V) track tensor (the JAX package's composition).
+  weights, the mask and the robust weights, come from
+  ``ops.ba_linearize.linearize``, which holds the kernel, its plain
+  version (``vmap(jacfwd)``, the JAX package's composition) and the
+  choice between them by device; here it is one call in the
+  ba/lm/linearize span.
 * Huber robustness is IRLS: residual/Jacobian rows scaled by sqrt(rho'(s)).
-* Elimination: point blocks H_pp are (P, 3, 3) closed-form inverses; the
-  reduced camera system S (6C+3M dofs) is assembled from camera- and
-  model-indexed sums and one (6C+3M, 3P) x (3P, 6C+3M) product for the
-  Schur fill.  In the dense path every slot's products (its JᵀJ blocks
-  and rhs row, W, its Cholesky-folded U) and every point's inverse come
-  from one launch of the hand-written kernel
-  ``ops/csrc/ba_reduce_slots.cu`` (``ops.ba_reduce_slots``) on the card,
-  and on the CPU from its plain version, the einsums grouped into the same
-  rows.
+* Elimination: point blocks H_pp are (P, 3, 3) closed-form inverses.
+  Both camera solvers open the same way (``_reduced_slots``): every
+  slot's products (its JᵀJ blocks and rhs row, W, its Cholesky-folded U)
+  and every point's inverse come from one call of
+  ``ops.ba_reduce_slots.reduce_slots`` (its kernel on the card, its plain
+  einsums on the CPU).  The dense path assembles the reduced camera
+  system S (6C+3M dofs) from camera- and model-indexed sums of those rows
+  and one (6C+3M, 3P) x (3P, 6C+3M) product for the Schur fill.
 * Every sum over observation slots (or over triples sharing a camera)
   goes through ``ops.segsum.segment_sum`` with the plans of `BAPlans`,
   made once per solve (the index sets do not change across iterations):
@@ -59,6 +58,7 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -66,8 +66,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..ops import ba_linearize, ba_reduce_slots, projection
-from ..ops.ba_reduce_slots import chol3x3 as _chol3x3
-from ..ops.ba_reduce_slots import inv3x3 as _inv3x3
+from ..ops.ba_reduce_slots import inv3x3
 from ..ops.segsum import SegmentPlan, make_plan, segment_sum
 from ..utils.tracing import span
 from .problem import BAProblem
@@ -144,20 +143,12 @@ def make_plans(problem: BAProblem, cfg, priors: bool) -> BAPlans:
     return plans
 
 
-def _residual_one(pose, intr, point, uv):
-    """2-vector reprojection residual for one observation."""
-    return projection.reprojection_residual(pose, intr, point, uv)
-
-
 def _aux(fn):
     """fn returning (r, r): jacfwd(has_aux=True) then yields (J, r)."""
     def f(*args):
         r = fn(*args)
         return r, r
     return f
-
-
-_rj = vmap(jacfwd(_aux(_residual_one), argnums=(0, 1, 2), has_aux=True))
 
 
 def _gathered(problem: BAProblem):
@@ -168,59 +159,31 @@ def _gathered(problem: BAProblem):
     return poses, intrs, pts
 
 
-def _obs_jacobians(problem: BAProblem):
-    """Residuals + Jacobians for every (P, V) observation slot.
-
-    Returns r (P,V,2), Jpose (P,V,2,6), Jintr (P,V,2,3), Jpt (P,V,2,3),
-    all pre-multiplied by sqrt(track_weight) and the mask but NOT by
-    robust weights.
-    """
-    P, V = problem.track_cam.shape
-    poses, intrs, pts = _gathered(problem)
-    (Jpo, Jin, Jpt), r = _rj(poses.reshape(-1, 6), intrs.reshape(-1, 3),
-                             pts.reshape(-1, 3),
-                             problem.track_uv.reshape(-1, 2))
-    w = torch.sqrt(problem.track_weight)[:, None, None]
-    m = problem.track_mask.to(r.dtype)[:, :, None]
-    scale = (w * m)[..., None]
-    return (r.reshape(P, V, 2) * w * m, Jpo.reshape(P, V, 2, 6) * scale,
-            Jin.reshape(P, V, 2, 3) * scale, Jpt.reshape(P, V, 2, 3) * scale)
-
-
-def robust_weights(r, delta):
-    """sqrt(rho'(s)) for Huber rho (Ceres: rho(s) = s | 2 d sqrt(s) - d^2)."""
-    s = torch.sum(r * r, dim=-1)
-    w2 = torch.where(s <= delta * delta, 1.0,
-                     delta / torch.sqrt(torch.clamp(s, min=1e-20)))
-    return torch.sqrt(w2)
-
-
-def _linearize_plain(problem: BAProblem, cfg: LMConfig):
-    """_obs_jacobians' r, Jpose, Jintr and Jpt, each scaled by the robust
-    weights sqrt(rho'(s)): the plain version of the linearize kernel."""
-    r, Jpo, Jin, Jpt = _obs_jacobians(problem)
-    rw = robust_weights(r, cfg.huber_delta)[..., None]
-    return (r * rw, Jpo * rw[..., None], Jin * rw[..., None],
-            Jpt * rw[..., None])
+# the JAX package's ba/lm name; it lives with the plain linearize
+robust_weights = ba_linearize.robust_weights
 
 
 def _linearize(problem: BAProblem, cfg: LMConfig):
     """r (P,V,2), Jpose (P,V,2,6), Jintr (P,V,2,3) and Jpt (P,V,2,3) of
     every observation slot, scaled by sqrt(track_weight), the mask and the
-    robust weights sqrt(rho'(s)).  CUDA tensors: one launch of the
-    ops/csrc/ba_linearize.cu kernel (or it raises); CPU tensors:
-    `_linearize_plain`."""
+    robust weights sqrt(rho'(s)) (ops.ba_linearize.linearize)."""
     with span("ba/lm/linearize"):
-        dev = problem.points.device.type
-        if dev == "cuda":
-            return ba_linearize.linearize(
-                problem.poses, problem.intrs, problem.points,
-                problem.cam_model, problem.track_cam, problem.track_uv,
-                problem.track_weight, problem.track_mask, cfg.huber_delta)
-        if dev == "cpu":
-            return _linearize_plain(problem, cfg)
-        raise ValueError(f"_linearize has no implementation for device "
-                         f"{dev!r}")
+        return ba_linearize.linearize(
+            problem.poses, problem.intrs, problem.points, problem.cam_model,
+            problem.track_cam, problem.track_uv, problem.track_weight,
+            problem.track_mask, cfg.huber_delta)
+
+
+@contextlib.contextmanager
+def _reduced_slots(problem: BAProblem, lam, cfg: LMConfig):
+    """The opening both camera solvers share: linearize every slot, then,
+    inside the ba/lm/reduce span that the caller's sums stay in, reduce
+    them in one call of ops.ba_reduce_slots.reduce_slots.  Yields Jpose,
+    Jintr and reduce_slots' (Hpp_inv, g_pt, W, U, cam rows, model rows)."""
+    r, Jpo, Jin, Jpt = _linearize(problem, cfg)
+    with span("ba/lm/reduce"):
+        yield Jpo, Jin, ba_reduce_slots.reduce_slots(
+            r, Jpo, Jin, Jpt, problem.point_mut, lam)
 
 
 def _host(x, name: str, to=float):
@@ -241,7 +204,7 @@ def robust_cost(r, mask, delta):
 
 def compute_residuals(problem: BAProblem):
     poses, intrs, pts = _gathered(problem)
-    r = _residual_one(poses, intrs, pts, problem.track_uv)
+    r = projection.reprojection_residual(poses, intrs, pts, problem.track_uv)
     w = torch.sqrt(problem.track_weight)[:, None, None]
     return r * w * problem.track_mask.to(r.dtype)[:, :, None]
 
@@ -376,15 +339,12 @@ def partial_camera_system(problem: BAProblem, lam, cfg: LMConfig,
     if plans is None:
         plans = make_plans(problem, cfg._replace(cg_iterations=0), False)
 
-    r, Jpo, Jin, Jpt = _linearize(problem, cfg)
-    with span("ba/lm/reduce"):
-        # every slot's products in one pass (ops/ba_reduce_slots): the
-        # point blocks' inverses, W = [Jpose|Jintr]^T Jpt, its Cholesky-
-        # folded U (Hpp_inv = L L^T) and the camera / model rows
-        # [JᵀJ blocks | rv], rv = W Hpp_inv g_pt - [Jpose|Jintr]^T r
-        Hpp_inv, g_pt, W, U, cam_rows, model_rows = \
-            ba_reduce_slots.reduce_slots(r, Jpo, Jin, Jpt, problem.point_mut,
-                                         lam)
+    # every slot's products in one pass (ops/ba_reduce_slots): the point
+    # blocks' inverses, W = [Jpose|Jintr]^T Jpt, its Cholesky-folded U
+    # (Hpp_inv = L L^T) and the camera / model rows [JᵀJ blocks | rv],
+    # rv = W Hpp_inv g_pt - [Jpose|Jintr]^T r
+    with _reduced_slots(problem, lam, cfg) as (
+            _, _, (Hpp_inv, g_pt, W, U, cam_rows, model_rows)):
         cam = segment_sum(cam_rows, plans.cam)                      # (C,60)
         model = segment_sum(model_rows, plans.model)                # (M,12)
         Hcc_pose = cam[:, :36].reshape(C, 6, 6)
@@ -490,58 +450,37 @@ def _track_terms(problem: BAProblem, lam, cfg: LMConfig,
     (P,V,2,9), W (P,V,9,3) = [Jpose|Jintr]^T Jpt, the point-block inverses
     Hpp_inv (P,3,3) and the block-Jacobi pieces of S (the camera and model
     diagonal blocks minus their Schur parts); aux is what backsub_points
-    needs.  Masked slots carry zero Jacobians and residuals, so they add
-    nothing to any camera sum.  `reduce` sums rhs and the block-Jacobi
-    pieces over the ranks.
+    needs.  Every slot's products come from the reduce the dense path
+    runs (`_reduced_slots`).  Masked slots carry zero Jacobians and
+    residuals, so they add nothing to any camera sum.  `reduce` sums rhs
+    and the block-Jacobi pieces over the ranks.
     """
-    dtype, dev = problem.points.dtype, problem.points.device
     if plans is None:
         plans = make_plans(problem, cfg, False)
 
-    r, Jpo, Jin, Jpt = _linearize(problem, cfg)
-    with span("ba/lm/reduce"):
-        pm = problem.point_mut
-
-        # ---- point blocks ----
-        eye3 = torch.eye(3, dtype=dtype, device=dev)
-        Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
-        diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
-        damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
-        Hpp_d = Hpp + torch.diag_embed(damp)
-        Hpp_d = Hpp_d * pm[:, None, None] + eye3 * (1.0 - pm)[:, None, None]
-        Hpp_inv = _inv3x3(Hpp_d)
-
-        # ---- W and its Cholesky-folded form U (Schur part = U U^T) ----
-        Jc = torch.cat([Jpo, Jin], dim=-1)                          # (P,V,2,9)
-        W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) \
-            * pm[:, None, None, None]
-        U = torch.einsum("pvij,pjk->pvik", W, _chol3x3(Hpp_inv))    # (P,V,9,3)
-
-        # ---- gradient + Schur rhs correction ----
-        g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)
-        y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
-        rv = torch.einsum("pvij,pj->pvi", W, y) \
-            - torch.einsum("pvri,pvr->pvi", Jc, r)                  # (P,V,9)
-        rhs = torch.cat([segment_sum(rv[..., :6], plans.cam).reshape(-1),
-                         segment_sum(rv[..., 6:], plans.model).reshape(-1)])
-
-        # ---- block-Jacobi pieces of S (Hcc minus Schur part, per view) ----
+    with _reduced_slots(problem, lam, cfg) as (
+            Jpo, Jin, (Hpp_inv, g_pt, W, U, cam, model)):
+        P, V = W.shape[:2]
+        # rhs: -(g_cam - E Hpp_inv g_pt), the sums of rv
+        rhs = torch.cat([segment_sum(cam[..., 54:], plans.cam).reshape(-1),
+                         segment_sum(model[..., 9:], plans.model).reshape(-1)])
+        # block-Jacobi pieces of S: each slot's JᵀJ block minus its Schur
+        # part U Uᵀ, per slot before the sums
         blk_pose = segment_sum(
-            torch.einsum("pvri,pvrj->pvij", Jpo, Jpo)
+            cam[..., :36].reshape(P, V, 6, 6)
             - torch.einsum("pvik,pvjk->pvij", U[:, :, :6], U[:, :, :6]),
             plans.cam)
         blk_intr = segment_sum(
-            torch.einsum("pvri,pvrj->pvij", Jin, Jin)
+            model[..., :9].reshape(P, V, 3, 3)
             - torch.einsum("pvik,pvjk->pvij", U[:, :, 6:], U[:, :, 6:]),
             plans.model)
-
         if reduce is not None:
             rhs, blk_pose, blk_intr = _reduce_cat(reduce, rhs, blk_pose,
                                                   blk_intr)
-    terms = {"Jc": Jc, "W": W, "Hpp_inv": Hpp_inv,
-             "blk_pose": blk_pose, "blk_intr": blk_intr}
-    aux = {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
-    return terms, rhs, aux
+        terms = {"Jc": torch.cat([Jpo, Jin], dim=-1), "W": W,
+                 "Hpp_inv": Hpp_inv, "blk_pose": blk_pose,
+                 "blk_intr": blk_intr}
+    return terms, rhs, {"W": W, "Hpp_inv": Hpp_inv, "g_pt": g_pt}
 
 
 def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
@@ -629,7 +568,7 @@ def _cg_solve(problem: BAProblem, terms, rhs, lam, cfg: LMConfig,
     Bp = Bp * fp + eye6 * (1.0 - fp)
     Bi = Bi * fi + eye3 * (1.0 - fi)
     Lp, info = torch.linalg.cholesky_ex(Bp)
-    Bi_inv = _inv3x3(Bi)
+    Bi_inv = inv3x3(Bi)
 
     def prec(r):
         zp = torch.cholesky_solve(r[:6 * C].reshape(C, 6, 1), Lp)

@@ -1,16 +1,21 @@
-"""Bundle adjustment's linearization of every observation slot in one launch.
+"""Bundle adjustment's linearization of every observation slot.
 
 `linearize` returns, for the (P, V) observation slots of a BA problem,
 the reprojection residuals r (P, V, 2) and their Jacobians in the pose
 (P, V, 2, 6), the camera model (P, V, 2, 3) and the point (P, V, 2, 3),
 each scaled by sqrt(track_weight), the slot's mask and the Huber weight
-sqrt(rho'(s)) of the scaled residual: what `ba/lm._linearize` hands the
-reduced camera system.  It is one launch of the hand-written kernel
+sqrt(rho'(s)) of the scaled residual (`robust_weights`): what both camera
+solvers of `ba/lm` reduce (`ops.ba_reduce_slots`).  A masked slot is zero.
+
+On CUDA tensors it is one launch of the hand-written kernel
 `ops/csrc/ba_linearize.cu` (analytic derivatives of the same expressions;
-a masked slot is zero), on CUDA tensors only: a failed build or launch
-raises, there is no fallback.  The plain version is `ba/lm._linearize`'s
-CPU branch, `vmap(jacfwd)` of `ops/projection.reprojection_residual`
-scaled by the weights, the mask and `ba/lm.robust_weights`.
+a masked slot is written as zeros, unprojected); a failed build or launch
+raises, there is no fallback.  On CPU tensors it is the plain version,
+`linearize_plain`: `vmap(jacfwd)` of `ops/projection.reprojection_residual`
+over the flattened slots, masked slots selected to zero before any
+scaling (so a slot whose projection or derivative is not finite is zero
+on both devices), then scaled by the track weights and the Huber weights.
+Any other device raises.  Float32 or float64.
 
 This is a port-only kernel: the JAX package linearizes with
 `jax.vmap(jax.jacfwd)` (`metricsfm_tpu/ba/lm.py:85-107`), which XLA fuses.
@@ -21,12 +26,49 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.func import jacfwd, vmap
 
-from . import cuda_build
+from . import cuda_build, projection
 
 _SYMBOLS = {torch.float32: "ba_linearize_f32_launch",
             torch.float64: "ba_linearize_f64_launch"}
 _fns = {}
+
+
+def _residual_aux(pose, intr, point, uv):
+    """One slot's residual twice: jacfwd(has_aux=True) then yields (J, r)."""
+    r = projection.reprojection_residual(pose, intr, point, uv)
+    return r, r
+
+
+_rj = vmap(jacfwd(_residual_aux, argnums=(0, 1, 2), has_aux=True))
+
+
+def robust_weights(r, delta):
+    """sqrt(rho'(s)) for Huber rho (Ceres: rho(s) = s | 2 d sqrt(s) - d^2)."""
+    s = torch.sum(r * r, dim=-1)
+    w2 = torch.where(s <= delta * delta, 1.0,
+                     delta / torch.sqrt(torch.clamp(s, min=1e-20)))
+    return torch.sqrt(w2)
+
+
+def linearize_plain(poses, intrs, points, cam_model, track_cam, track_uv,
+                    track_weight, track_mask, delta):
+    """The plain version: `linearize`'s outputs from `vmap(jacfwd)` of the
+    reprojection residual, in the values' dtype."""
+    P, V = track_cam.shape
+    (Jpo, Jin, Jpt), r = _rj(
+        poses[track_cam].reshape(-1, 6),
+        intrs[cam_model[track_cam]].reshape(-1, 3),
+        points[:, None, :].expand(-1, V, -1).reshape(-1, 3),
+        track_uv.reshape(-1, 2))
+    keep = track_mask.reshape(P, V, 1)
+    w = torch.sqrt(track_weight)[:, None, None]
+    r = torch.where(keep, r.reshape(P, V, 2), 0.0) * w
+    Js = [torch.where(keep[..., None], J.reshape(P, V, 2, -1), 0.0)
+          * w[..., None] for J in (Jpo, Jin, Jpt)]
+    rw = robust_weights(r, delta)[..., None]
+    return (r * rw, *(J * rw[..., None] for J in Js))
 
 
 def _kernel(dtype):
@@ -45,8 +87,8 @@ def _check(poses, intrs, points, cam_model, track_cam, track_uv,
            track_weight, track_mask):
     dtype = points.dtype
     if dtype not in _SYMBOLS:
-        raise TypeError("the linearize kernel takes float32 or float64 "
-                        f"problems, got {dtype}")
+        raise TypeError("linearize takes float32 or float64 problems, got "
+                        f"{dtype}")
     for name, t in (("poses", poses), ("intrs", intrs),
                     ("track_uv", track_uv), ("track_weight", track_weight)):
         if t.dtype != dtype:
@@ -69,20 +111,14 @@ def _check(poses, intrs, points, cam_model, track_cam, track_uv,
                              f"expected {shape}")
     devices = {t.device for t in (poses, intrs, points, cam_model, track_cam,
                                   track_uv, track_weight, track_mask)}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError("the linearize kernel takes tensors on one CUDA "
-                         f"device, got {sorted(map(str, devices))}")
+    if len(devices) != 1:
+        raise ValueError("linearize takes tensors on one device, got "
+                         f"{sorted(map(str, devices))}")
 
 
-def linearize(poses, intrs, points, cam_model, track_cam, track_uv,
-              track_weight, track_mask, delta: float):
-    """(r, Jpose, Jintr, Jpt) of every (P, V) slot, scaled by
-    sqrt(track_weight), the mask and the Huber weights of threshold
-    `delta`: one launch of the kernel on the current stream, counted in
-    `linearize.launches`.  The problem's tensors (ba/problem.BAProblem's
-    fields of the same names) lie on one CUDA device; float32 or float64."""
-    _check(poses, intrs, points, cam_model, track_cam, track_uv,
-           track_weight, track_mask)
+def _launch(poses, intrs, points, cam_model, track_cam, track_uv,
+            track_weight, track_mask, delta):
+    """One launch of the kernel on the current stream."""
     P, V = track_cam.shape
     dev, dtype = points.device, points.dtype
     ins = [t.contiguous() for t in (poses, intrs, points, cam_model,
@@ -106,6 +142,25 @@ def linearize(poses, intrs, points, cam_model, track_cam, track_uv,
                            f"{rc}")
     linearize.launches += 1
     return tuple(outs)
+
+
+def linearize(poses, intrs, points, cam_model, track_cam, track_uv,
+              track_weight, track_mask, delta: float):
+    """(r, Jpose, Jintr, Jpt) of every (P, V) slot, scaled by
+    sqrt(track_weight), the mask and the Huber weights of threshold
+    `delta`.  CUDA tensors: one launch of the kernel on the current
+    stream, counted in `linearize.launches`; CPU tensors:
+    `linearize_plain`.  The problem's tensors (ba/problem.BAProblem's
+    fields of the same names) lie on one device; float32 or float64."""
+    args = (poses, intrs, points, cam_model, track_cam, track_uv,
+            track_weight, track_mask)
+    _check(*args)
+    dev = points.device.type
+    if dev == "cuda":
+        return _launch(*args, delta)
+    if dev == "cpu":
+        return linearize_plain(*args, delta)
+    raise ValueError(f"linearize has no implementation for device {dev!r}")
 
 
 linearize.launches = 0

@@ -1,12 +1,13 @@
-"""BA's dense-Schur reduce of every observation slot in one launch.
+"""BA's reduce of every observation slot in one launch.
 
 `reduce_slots(r, Jpo, Jin, Jpt, point_mut, lam)` takes a BA problem's
-linearized (P, V) observation slots (`ops.ba_linearize`'s outputs, or
-`ba/lm._linearize_plain`'s: r (P, V, 2) and the Jacobians in the pose
-(P, V, 2, 6), the camera model (P, V, 2, 3) and the point (P, V, 2, 3),
-scaled by the weights; a masked slot is zero) and returns what the dense
-path's segment sums and back-substitution need
-(`ba/lm.partial_camera_system`), with Jc = [Jpo | Jin] and L L^T = Hpp_inv:
+linearized (P, V) observation slots (`ops.ba_linearize.linearize`'s
+outputs: r (P, V, 2) and the Jacobians in the pose (P, V, 2, 6), the
+camera model (P, V, 2, 3) and the point (P, V, 2, 3), scaled by the
+weights; a masked slot is zero) and returns what both camera solvers of
+`ba/lm` sum and back-substitute: the dense path's S and rhs, and the PCG
+path's rhs and block-Jacobi blocks.  With Jc = [Jpo | Jin] and
+L L^T = Hpp_inv:
 
 - Hpp_inv (P, 3, 3): the inverse of each point's block sum_v Jpt^T Jpt,
   damped by lam * max(diag, 1e-12) + 1e-12 and the identity where
@@ -14,7 +15,8 @@ path's segment sums and back-substitution need
 - g_pt (P, 3): sum_v Jpt^T r;
 - W (P, V, 9, 3): Jc^T Jpt point_mut;
 - U (P, V, 9, 3): W L (`chol3x3`), whose sums per (point, camera) and
-  (point, model) are the Schur fill's factor;
+  (point, model) are the dense Schur fill's factor, and whose U U^T is
+  the slot's Schur part of a PCG block-Jacobi block;
 - cam (P, V, 60): [Jpo^T Jpo (36) | Jpo^T Jin (18) | rv[:6]] and
   model (P, V, 12): [Jin^T Jin (9) | rv[6:]], with
   rv = W Hpp_inv g_pt - Jc^T r, so that each camera's and model's sum of
@@ -23,9 +25,9 @@ path's segment sums and back-substitution need
 On CUDA tensors it is one launch of the hand-written kernel
 `ops/csrc/ba_reduce_slots.cu` (each point's sums in slot order, no
 atomics); a failed build or launch raises, there is no fallback.  On CPU
-tensors it is the plain version, `reduce_slots_plain`: the einsums
-`partial_camera_system` used before the kernel, grouped into the same
-rows.  Float32 or float64.
+tensors it is the plain version, `reduce_slots_plain`: the einsums both
+solvers used before the kernel, grouped into the same rows.  Any other
+device raises.  Float32 or float64.
 
 This is a port-only kernel: the JAX package writes these products as
 einsums against one-hot operands (`metricsfm_tpu/ba/lm.py:274-339`),

@@ -1,13 +1,17 @@
-"""BA's linearization of the observation slots (`ba/lm._linearize`).
+"""BA's linearization of the observation slots (`ops.ba_linearize`,
+called by `ba/lm._linearize`).
 
-On the CPU `_linearize` is its plain version, `vmap(jacfwd)` of the
-reprojection residual scaled by the track weights, the mask and the Huber
-weights: bit for bit the composition the port used before the kernel, so
-the JAX parity tests of `tests/test_torch_ba.py` keep their numbers.  On a
-CUDA tensor it is one launch of `ops/csrc/ba_linearize.cu` (analytic
-Jacobians) and never the plain version; the kernel itself runs only on the
-card (`test_kernel_on_the_card`, `test_solve_lm_on_the_card`, and
-`chip_smoke.py` phase 3's `linearize_phase`).
+On the CPU `linearize` is its plain version, `linearize_plain`:
+`vmap(jacfwd)` of the reprojection residual scaled by the track weights,
+the mask and the Huber weights, bit for bit the composition the port used
+before the kernel on every kept slot, so the JAX parity tests of
+`tests/test_torch_ba.py` keep their numbers.  A masked slot is zero, also
+where its projection's derivative is not finite (the composition leaves
+NaN * 0 there).  On a CUDA tensor it is one launch of
+`ops/csrc/ba_linearize.cu` (analytic Jacobians) and never the plain
+version; the kernel itself runs only on the card (`test_kernel_on_the_card`,
+`test_solve_lm_on_the_card`, and `chip_smoke.py` phase 3's
+`linearize_phase`).
 """
 import numpy as np
 import pytest
@@ -80,43 +84,48 @@ def test_cpu_linearize_is_the_plain_composition(dtype, shared, delta):
 
 
 class _OnCard(torch.Tensor):
-    """A CPU tensor that reports a CUDA device: what `_linearize` reads to
+    """A CPU tensor that reports a CUDA device: what `linearize` reads to
     pick its branch."""
     @property
     def device(self):
         return torch.device("cuda", 0)
 
 
-def test_card_tensors_never_reach_the_plain_version(monkeypatch):
-    """A problem on the card goes to the kernel's wrapper, with the
-    problem's fields and the Huber threshold, and never to vmap(jacfwd)."""
-    def no_plain(*args):
-        raise AssertionError("vmap(jacfwd) reached with card tensors")
+FIELDS = ("poses", "intrs", "points", "cam_model", "track_cam", "track_uv",
+          "track_weight", "track_mask")
 
+
+def _no_plain(monkeypatch):
+    """Make every entry into the plain version fail the test."""
+    def no_plain(*args):
+        raise AssertionError("vmap(jacfwd) reached")
+
+    monkeypatch.setattr(ba_linearize, "_rj", no_plain)
+    monkeypatch.setattr(ba_linearize, "linearize_plain", no_plain)
+
+
+def test_card_tensors_never_reach_the_plain_version(monkeypatch):
+    """A problem on the card goes to the kernel's launch, with the
+    problem's fields and the Huber threshold, and never to vmap(jacfwd)."""
     calls = []
 
-    def kernel(*args):
+    def launch(*args):
         calls.append(args)
         return "kernel's result"
 
-    monkeypatch.setattr(lm, "_rj", no_plain)
-    monkeypatch.setattr(lm, "_obs_jacobians", no_plain)
-    monkeypatch.setattr(ba_linearize, "linearize", kernel)
+    _no_plain(monkeypatch)
+    monkeypatch.setattr(ba_linearize, "_launch", launch)
     prob = _problem()
-    prob = prob._replace(points=prob.points.as_subclass(_OnCard))
+    prob = prob._replace(**{f: getattr(prob, f).as_subclass(_OnCard)
+                            for f in FIELDS})
     assert lm._linearize(prob, LMConfig(huber_delta=2.5)) == "kernel's result"
     (args,) = calls
-    fields = ("poses", "intrs", "points", "cam_model", "track_cam",
-              "track_uv", "track_weight", "track_mask")
-    assert all(a is getattr(prob, f) for a, f in zip(args, fields))
+    assert all(a is getattr(prob, f) for a, f in zip(args, FIELDS))
     assert args[-1] == 2.5
 
 
 def test_other_devices_raise(monkeypatch):
-    def no_plain(*args):
-        raise AssertionError("vmap(jacfwd) reached")
-
-    monkeypatch.setattr(lm, "_rj", no_plain)
+    _no_plain(monkeypatch)
     prob = _problem()
     prob = prob._replace(**{f: getattr(prob, f).to("meta")
                             for f in prob._fields})
@@ -124,10 +133,54 @@ def test_other_devices_raise(monkeypatch):
         lm._linearize(prob, LMConfig())
 
 
+def _padded_problem(seed=0):
+    """A padded float32 problem, as `to_ba_problem` pads: every slot of
+    camera 0 masked (a padding camera, frozen; camera 1 frozen for the
+    gauge), masked slots at camera 0 with uv 0, radial distortion, 0.5 px
+    of noise.  Camera 0 is placed so that track 0's point lies 1e-5 in
+    front of its image plane, 30 units off its axis: that padded slot's
+    residual is finite (~1e32 px) but its derivative overflows float32,
+    so vmap(jacfwd) gives it NaN Jacobians."""
+    prob = synth.synthetic_ba_problem(8, 64, 4, seed=seed, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    pad = prob.track_cam == 0
+    pad[0, -1] = True
+    at = torch.tensor([30.0, 15.0, 1e-5], dtype=torch.float64)
+    poses = prob.poses.clone()
+    poses[0] = torch.cat([torch.zeros(3, dtype=torch.float64),
+                          at - prob.points[0].double()])
+    intrs = prob.intrs.clone()
+    intrs[:, 1:] = torch.tensor([-0.03, 0.01])
+    noise = 0.5 * torch.randn(prob.track_uv.shape, generator=g)
+    return prob._replace(
+        poses=poses, intrs=intrs, track_mask=~pad,
+        track_cam=torch.where(pad, 0, prob.track_cam),
+        track_uv=torch.where(pad[..., None], 0.0, prob.track_uv + noise),
+        pose_mut=prob.pose_mut.index_fill(0, torch.tensor([1]), 0.0))
+
+
+def test_masked_slots_that_do_not_project_are_zero():
+    """A padded slot whose projection has no finite derivative: the
+    composition leaves it NaN (NaN * 0), the plain version zero, as the
+    kernel writes it; every kept slot bit for bit the composition.  One
+    PCG solve then lowers the cost, where the NaN would have poisoned
+    every step."""
+    prob = _padded_problem()
+    old = _composition(prob, 1.0)
+    assert any(bool(o[0, -1].isnan().any()) for o in old)
+    got = lm._linearize(prob, LMConfig(huber_delta=1.0))
+    kept = prob.track_mask
+    for g, o in zip(got, old):
+        assert bool((g[~kept] == 0).all())
+        torch.testing.assert_close(g[kept], o[kept], rtol=0, atol=0)
+    _, info = lm.solve_lm(prob, LMConfig(max_iterations=10,
+                                         cg_iterations=50))
+    assert np.isfinite(info["final_cost"])
+    assert info["final_cost"] < info["initial_cost"]
+
+
 def _args(prob):
-    return [prob.poses, prob.intrs, prob.points, prob.cam_model,
-            prob.track_cam, prob.track_uv, prob.track_weight,
-            prob.track_mask]
+    return [getattr(prob, f) for f in FIELDS]
 
 
 @pytest.mark.parametrize("case,error", [
@@ -136,7 +189,8 @@ def _args(prob):
     ("weight shape", ValueError), ("pose width", ValueError),
     ("cpu", ValueError)])
 def test_wrapper_checks_arguments(case, error):
-    """Wrong types, shapes and devices raise before any launch."""
+    """Wrong types, shapes and devices raise before any launch ("cpu":
+    the mask left on the CPU beside the rest on another device)."""
     prob = _problem(n_pts=20)
     a = _args(prob)
     if case == "half":
@@ -153,6 +207,8 @@ def test_wrapper_checks_arguments(case, error):
         a[6] = a[6][:-1]
     elif case == "pose width":
         a[0] = a[0][:, :5]
+    elif case == "cpu":
+        a = [t.to("meta") for t in a[:7]] + a[7:]
     before = ba_linearize.linearize.launches
     with pytest.raises(error):
         ba_linearize.linearize(*a, 1.0)
@@ -234,8 +290,8 @@ def test_kernel_on_the_card(dtype, shared):
         got = got[0]
         assert all(g.is_contiguous() for g in got)
         if delta > 1.0 or dtype == torch.float64:
-            plain = lm._linearize_plain(prob, cfg)
-            truth = lm._linearize_plain(p64, cfg)
+            plain = chip_smoke.linearize_plain(prob, cfg)
+            truth = chip_smoke.linearize_plain(p64, cfg)
             _blocks_close(got, plain, truth, dtype, kept)
         else:
             _weights_close(got, raw, delta, kept)
@@ -250,9 +306,8 @@ def _edge_problem(dev, dtype):
     0.99e-8 and 1.01e-8 (both sides of the small-angle switch at 1e-8);
     points at camera-frame z = 1e-13, -3e-13 (clamped to 1e-12) and
     2e-12 (not), each in its track's first camera; and the masked slots
-    of a track whose point is at infinity (a padding point's), which the
-    plain version projects to NaN, kept by its product with the mask
-    (NaN * 0), and the kernel writes as 0."""
+    of a track whose point is at infinity (a padding point's), which
+    vmap(jacfwd) projects to NaN and both versions write as 0."""
     prob = chip_smoke.linearize_problem("cpu", 64, torch.float64, n_cams=8,
                                         views=6, keep=1.0, seed=5,
                                         shared=False)
@@ -286,16 +341,17 @@ def test_kernel_edges_on_the_card(dtype):
     scale).  float32: the slots off the clamp as in `_blocks_close`
     without the Huber weight and `_weights_close` with it (the clamped
     ones divide by 1e-12 and overflow float32's distortion polynomial in
-    both versions).  The masked slots: the kernel's zeros where the plain
-    version has NaN."""
+    both versions).  The masked slots: zeros in both versions, where the
+    composition has NaN."""
     dev = _card()
     prob = _edge_problem(dev, dtype)
     cfg = LMConfig(huber_delta=1.0)
     got = lm._linearize(prob, cfg)
-    plain = lm._linearize_plain(prob, cfg)
+    plain = chip_smoke.linearize_plain(prob, cfg)
     kept = prob.track_mask
     assert all(bool((g[3] == 0).all()) for g in got)
-    assert any(bool(p[3].isnan().any()) for p in plain)
+    assert all(bool((p[3] == 0).all()) for p in plain)
+    assert any(bool(o[3].isnan().any()) for o in _composition(prob, 1.0))
     if dtype == torch.float64:
         for k, p in zip(got, plain):
             k, p = k[kept].reshape(int(kept.sum()), -1), \
@@ -307,10 +363,10 @@ def test_kernel_edges_on_the_card(dtype):
         off[:3, 0] = False
         unweighted = LMConfig(huber_delta=float("inf"))
         raw = lm._linearize(prob, unweighted)
-        truth = lm._linearize_plain(_edge_problem(dev, torch.float64),
-                                    unweighted)
-        _blocks_close(raw, lm._linearize_plain(prob, unweighted), truth,
-                      dtype, off)
+        truth = chip_smoke.linearize_plain(
+            _edge_problem(dev, torch.float64), unweighted)
+        _blocks_close(raw, chip_smoke.linearize_plain(prob, unweighted),
+                      truth, dtype, off)
         _weights_close(got, raw, 1.0, off)
 
 
@@ -328,7 +384,7 @@ def test_solve_lm_on_the_card(monkeypatch):
     before = ba_linearize.linearize.launches
     _, ik = lm.solve_lm(prob, cfg)
     assert ba_linearize.linearize.launches - before == ik["iterations"]
-    monkeypatch.setattr(lm, "_linearize", lm._linearize_plain)
+    monkeypatch.setattr(ba_linearize, "_launch", ba_linearize.linearize_plain)
     _, ip = lm.solve_lm(prob, cfg)
     assert ba_linearize.linearize.launches - before == ik["iterations"]
     assert ik["final_cost"] < ik["initial_cost"]

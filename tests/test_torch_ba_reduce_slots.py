@@ -1,4 +1,5 @@
-"""BA's dense-Schur reduce of the observation slots (`ops.ba_reduce_slots`).
+"""BA's reduce of the observation slots (`ops.ba_reduce_slots`), which
+both camera solvers of `ba/lm` run.
 
 On the CPU `reduce_slots` is its plain version: the einsums and closed-form
 3x3 inverse and Cholesky `ba/lm.partial_camera_system` evaluated before
@@ -6,10 +7,11 @@ the kernel, grouped into per-slot camera and model rows.  Its point
 blocks, W, U and JᵀJ blocks are bit for bit the composition written out
 below, and so is S after the sums; the right-hand side is now the sum of
 rv = W y - Jcᵀ r, where it was the difference of two sums, so it agrees to
-the rounding of its terms.  On a CUDA tensor it is one launch of
-`ops/csrc/ba_reduce_slots.cu` and never the plain version; the kernel
-itself runs only on the card (the tests marked `card`, and
-`chip_smoke.py` phase 3's `reduce_slots_phase`).
+the rounding of its terms.  The PCG path's `_track_terms` are bit for bit
+the inline einsums it ran before it reduced through `reduce_slots`.  On a
+CUDA tensor it is one launch of `ops/csrc/ba_reduce_slots.cu` and never
+the plain version; the kernel itself runs only on the card (the tests
+marked `card`, and `chip_smoke.py` phase 3's `reduce_slots_phase`).
 """
 import pytest
 import torch
@@ -59,11 +61,11 @@ def _composition(r, Jpo, Jin, Jpt, point_mut, lam):
     Hpp_d = Hpp + torch.diag_embed(damp)
     pm = point_mut[:, None, None]
     Hpp_d = Hpp_d * pm + torch.eye(3, dtype=dtype) * (1.0 - pm)
-    Hpp_inv = lm._inv3x3(Hpp_d)
+    Hpp_inv = ba_reduce_slots.inv3x3(Hpp_d)
     Jc = torch.cat([Jpo, Jin], dim=-1)
     W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) \
         * point_mut[:, None, None, None]
-    U = torch.einsum("pvij,pjk->pvik", W, lm._chol3x3(Hpp_inv))
+    U = torch.einsum("pvij,pjk->pvik", W, ba_reduce_slots.chol3x3(Hpp_inv))
     y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
     corr = torch.einsum("pvij,pj->pvi", W, y)
     cam = (torch.einsum("pvri,pvrj->pvij", Jpo, Jpo),
@@ -193,6 +195,78 @@ def test_partial_camera_system_reduces_through_the_wrapper(monkeypatch):
     lm.partial_camera_system(prob, 0.25, LMConfig())
     (args,) = calls
     assert args[4] is prob.point_mut and args[5] == 0.25
+
+
+def test_track_terms_reduce_through_the_wrapper(monkeypatch):
+    """The PCG path takes its per-slot terms from one call of
+    reduce_slots, with the problem's point_mut and the damping."""
+    prob = _problem(6, torch.float32)
+    calls = []
+    real = ba_reduce_slots.reduce_slots
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(ba_reduce_slots, "reduce_slots", spy)
+    lm._track_terms(prob, 0.25, LMConfig(cg_iterations=10))
+    (args,) = calls
+    assert args[4] is prob.point_mut and args[5] == 0.25
+
+
+def _old_track_terms(prob, lam, cfg, plans):
+    """_track_terms' Jc, W, Hpp_inv, block-Jacobi blocks and rhs as its
+    inline einsums gave them before it reduced through reduce_slots."""
+    dtype = prob.points.dtype
+    r, Jpo, Jin, Jpt = lm._linearize(prob, cfg)
+    pm = prob.point_mut
+    eye3 = torch.eye(3, dtype=dtype)
+    Hpp = torch.einsum("pvri,pvrj->pij", Jpt, Jpt)
+    diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    damp = lam * torch.clamp(diag_pp, min=1e-12) + 1e-12
+    Hpp_d = Hpp + torch.diag_embed(damp)
+    Hpp_d = Hpp_d * pm[:, None, None] + eye3 * (1.0 - pm)[:, None, None]
+    Hpp_inv = ba_reduce_slots.inv3x3(Hpp_d)
+    Jc = torch.cat([Jpo, Jin], dim=-1)
+    W = torch.einsum("pvri,pvrj->pvij", Jc, Jpt) * pm[:, None, None, None]
+    U = torch.einsum("pvij,pjk->pvik", W, ba_reduce_slots.chol3x3(Hpp_inv))
+    g_pt = torch.einsum("pvri,pvr->pi", Jpt, r)
+    y = torch.einsum("pij,pj->pi", Hpp_inv, g_pt)
+    rv = torch.einsum("pvij,pj->pvi", W, y) \
+        - torch.einsum("pvri,pvr->pvi", Jc, r)
+    rhs = torch.cat([segment_sum(rv[..., :6], plans.cam).reshape(-1),
+                     segment_sum(rv[..., 6:], plans.model).reshape(-1)])
+    blk_pose = segment_sum(
+        torch.einsum("pvri,pvrj->pvij", Jpo, Jpo)
+        - torch.einsum("pvik,pvjk->pvij", U[:, :, :6], U[:, :, :6]),
+        plans.cam)
+    blk_intr = segment_sum(
+        torch.einsum("pvri,pvrj->pvij", Jin, Jin)
+        - torch.einsum("pvik,pvjk->pvij", U[:, :, 6:], U[:, :, 6:]),
+        plans.model)
+    return {"Jc": Jc, "W": W, "Hpp_inv": Hpp_inv, "blk_pose": blk_pose,
+            "blk_intr": blk_intr, "rhs": rhs, "g_pt": g_pt}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("views", [3, 16])
+def test_track_terms_equal_the_einsums(dtype, shared, views):
+    """CPU tensors: the PCG path's terms, rhs and back-substitution
+    tensors bit for bit what its inline einsums gave (a fifth of the
+    points frozen)."""
+    prob = _problem(views, dtype, shared)
+    assert bool((prob.point_mut == 0).any())
+    cfg = LMConfig(cg_iterations=10)
+    plans = lm.make_plans(prob, cfg, False)
+    terms, rhs, aux = lm._track_terms(prob, 1e-3, cfg, plans)
+    want = _old_track_terms(prob, 1e-3, cfg, plans)
+    got = dict(terms, rhs=rhs, g_pt=aux["g_pt"])
+    assert set(got) == set(want)
+    assert aux["W"] is terms["W"] and aux["Hpp_inv"] is terms["Hpp_inv"]
+    for name, w in want.items():
+        assert got[name].dtype == dtype, name
+        assert torch.equal(got[name], w), name
 
 
 class _OnCard(torch.Tensor):
@@ -384,6 +458,35 @@ def test_solve_lm_on_the_card(monkeypatch):
     assert torch.equal(ok.poses, again.poses)
     assert torch.equal(ok.points, again.points)
     assert torch.equal(ok.intrs, again.intrs)
+    monkeypatch.setattr(ba_reduce_slots, "reduce_slots", _plain)
+    _, ip = lm.solve_lm(prob, cfg)
+    assert ik["final_cost"] < ik["initial_cost"]
+    assert abs(ik["final_cost"] - ip["final_cost"]) \
+        <= 1e-5 * ip["final_cost"], (ik, ip)
+    assert abs(ik["iterations"] - ip["iterations"]) <= 1
+
+
+@pytest.mark.card
+def test_pcg_solve_lm_on_the_card(monkeypatch):
+    """solve_lm with the PCG camera solve at the cell's widths (64
+    cameras, V = 16, 32,768 points; CG to 1e-6, no forcing), which
+    reduces through the kernel too: one launch an LM iteration; two
+    solves give the same bits; the plain version forced gives the final
+    cost within 1e-5 relative and the iteration count within one."""
+    dev = _card()
+    prob = synth.synthetic_ba_problem(64, 32768, 16, seed=12, device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    prob = prob._replace(track_uv=prob.track_uv + 0.5 * torch.randn(
+        prob.track_uv.shape, generator=g, device=dev))
+    cfg = LMConfig(max_iterations=15, rtol=1e-4, cg_iterations=100,
+                   cg_tol=1e-6, cg_forcing=False)
+    before = ba_reduce_slots.reduce_slots.launches
+    ok, ik = lm.solve_lm(prob, cfg)
+    assert ba_reduce_slots.reduce_slots.launches - before == ik["iterations"]
+    again, ia = lm.solve_lm(prob, cfg)
+    assert ia == ik
+    assert torch.equal(ok.poses, again.poses)
+    assert torch.equal(ok.points, again.points)
     monkeypatch.setattr(ba_reduce_slots, "reduce_slots", _plain)
     _, ip = lm.solve_lm(prob, cfg)
     assert ik["final_cost"] < ik["initial_cost"]
