@@ -6,7 +6,8 @@ Phases, each printing its own line with seconds; the first failure raises
 and the script exits non-zero:
   1. refuse to run without CUDA; print the card's name and power limit;
   2. build every CUDA kernel from ops/csrc with nvcc (one nvcc per source,
-     all started together: 2a, 2b, 2c, 2d-2h, segsum and ba_linearize)
+     all started together: 2a, 2b, 2c, 2d-2h, segsum, ba_linearize,
+     ba_reduce_slots and ba_candidate_cost)
      and print each
      kernel's registers, spills, shared memory and any wgmma-serialization
      warning from the build log;
@@ -46,7 +47,10 @@ and the script exits non-zero:
      without the Huber weight against the f64 plain version (within twice
      the f32 plain version's own error and 1e-6), with it against its own
      unweighted blocks times the weight (1e-6), and in f64 (1e-12), timed
-     beside its bytes bound and the plain version;
+     beside its bytes bound and the plain version; the reduce kernel
+     (ba_reduce_slots, `reduce_slots_phase`) and the LM candidate kernel
+     (ba_candidate_cost, `candidate_cost_phase`: back-substitution, the
+     candidate and its fixed-order Huber cost) at the same shapes, alike;
   4. drive `metricsfm_tpu_torch.cli sfm` on a rendered 8-view 1024x768
      scene with 4096 keypoints per image, with the knn2 launch count reset
      just before and read just after, and check the reconstruction against
@@ -163,7 +167,9 @@ and the script exits non-zero:
      ba_linearize; a kernel's launches summed over the paths' timed runs,
      each count reset just before its run, phase 13's ranks' 2a and
      sharded LMs included; every path that solves a BA on the card must
-     launch ba_linearize), the card line and the result line.
+     launch ba_linearize, ba_reduce_slots as often, and ba_candidate_cost
+     once more a solve: once an LM iteration and once for the solve's
+     initial cost), the card line and the result line.
 `--skip-e2e` stops after phase 3; `--profile DIR` adds a torch.profiler run
 of each end-to-end path (the aerial one device activity only, no trace).
 A failed build raises with its nvcc log; to keep a whole run's record,
@@ -1387,20 +1393,41 @@ def volume_phase(D=128, runs=2):
 REDUCE_SLOTS_LAUNCHES = {}
 
 
+# the same for the candidate kernel (ops/csrc/ba_candidate_cost.cu): every
+# solve_lm launches it once an LM iteration and once for its initial cost
+CANDIDATE_COST_LAUNCHES = {}
+_SOLVES_AT_RESET = [0]
+
+
 def reduce_slots_count(path=None):
-    """Reset the reduce kernel's launch count (`path` None), or keep the
-    count since the reset as `path`'s; it must equal the linearize
-    kernel's, reset with it."""
-    from metricsfm_tpu_torch.ops import ba_linearize, ba_reduce_slots
+    """Reset the reduce and candidate kernels' launch counts (`path`
+    None), or keep the counts since the reset as `path`'s: the reduce
+    kernel's must equal the linearize kernel's, reset with it, and the
+    candidate kernel's the linearize kernel's plus the solves since the
+    reset (the `ba/lm/solve` spans of the global tracer)."""
+    from metricsfm_tpu_torch.ops import (ba_candidate_cost, ba_linearize,
+                                         ba_reduce_slots)
+    from metricsfm_tpu_torch.utils.tracing import GLOBAL_TRACER
     n = ba_reduce_slots.reduce_slots.launches
+    solves = GLOBAL_TRACER.counts["ba/lm/solve"]
     if path is None:
         ba_reduce_slots.reduce_slots.launches = 0
+        ba_candidate_cost.candidate_cost.launches = 0
+        _SOLVES_AT_RESET[0] = solves
         return
     REDUCE_SLOTS_LAUNCHES[path] = n
     if n != ba_linearize.linearize.launches:
         raise AssertionError(
             f"{path}: {n} reduce_slots launches, "
             f"{ba_linearize.linearize.launches} linearize launches")
+    m = ba_candidate_cost.candidate_cost.launches
+    CANDIDATE_COST_LAUNCHES[path] = m
+    solves -= _SOLVES_AT_RESET[0]
+    if m != ba_linearize.linearize.launches + solves:
+        raise AssertionError(
+            f"{path}: {m} candidate_cost launches, "
+            f"{ba_linearize.linearize.launches} linearize launches and "
+            f"{solves} solves")
 
 
 def main_path_phase(n_cams=8, width=1024, height=768, max_kp=4096, runs=2):
@@ -3729,6 +3756,7 @@ def linearize_problem(dev, n_pts, dtype=None, n_cams=64, views=16, keep=0.41,
     prob = prob._replace(
         intrs=intrs, cam_model=(torch.zeros(n_cams, dtype=torch.int64)
                                 if shared else prob.cam_model),
+        intr_mut=torch.ones(M, dtype=prob.intr_mut.dtype),
         track_mask=torch.rand(prob.track_mask.shape, generator=g) < keep,
         track_weight=torch.where(torch.rand(n_pts, generator=g) < 0.5,
                                  2.0, 1.0),
@@ -4024,6 +4052,169 @@ def reduce_slots_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
                         "_track_terms in ba/lm.py)",
             "max_rel_err": max(c[n + "_rel_err"] for c in cases
                                for n in REDUCE_NAMES),
+            "ms": row["ms"], "call_ms": row["call_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "shape": f"{row['slots']} slots ({row['kept']} kept), V 16",
+            "cases": cases}
+
+
+def exact_cost_problem(dev, n_pts, dtype, n_cams=64, views=16, keep=0.41,
+                       seed=23):
+    """A problem whose every kept slot's rho is exact in float32: poses
+    the identity, f 1 and no distortion, points at z = 1 and residuals on
+    a 2^-8 grid (|r| <= 2 px), so each slot's residual, square and sum
+    are exact and the float64 sum of the float32 terms is the exact cost.
+    Against it the candidate kernel (one rounding of a double sum) can be
+    no farther than any float32 sum of the same terms."""
+    import torch
+    from metricsfm_tpu_torch.ba import problem as bp
+
+    g = torch.Generator().manual_seed(seed)
+
+    def grid(*shape, lim):
+        return torch.randint(-lim, lim + 1, shape, generator=g) / 256.0
+
+    xy = grid(n_pts, 2, lim=256)
+    points = torch.cat([xy, torch.ones(n_pts, 1)], 1)
+    r = grid(n_pts, views, 2, lim=512)
+    cam = torch.randint(0, n_cams, (n_pts, views), generator=g)
+    mask = torch.rand(n_pts, views, generator=g) < keep
+    return bp.build_problem(
+        torch.zeros(n_cams, 6), torch.tensor([[1.0, 0.0, 0.0]]),
+        torch.zeros(n_cams, dtype=torch.int64), points, cam,
+        xy[:, None, :] - r, mask, device=dev, dtype=dtype)
+
+
+def candidate_cost_bound(prob):
+    """The candidate kernel's bound: bytes, every slot's mask, each kept
+    slot's W (27 values), camera index and observation, each point's
+    Hpp_inv, g_pt, point, weight and point_mut read and its candidate
+    written once (the cameras' tables are a few KB); its ~200 flops a
+    kept slot are far below the card's rate."""
+    es = prob.points.element_size()
+    P, V = prob.track_cam.shape
+    kept = int(prob.track_mask.sum())
+    nbytes = P * V + kept * (27 * es + 8 + 2 * es) + P * 20 * es
+    b = bound(200 * kept, 67e12, nbytes)
+    b["nbytes"] = nbytes
+    return b
+
+
+def candidate_cost_phase(shapes=LINEARIZE_SHAPES, lam=1e-3):
+    """3: the candidate kernel every solve_lm runs
+    (ops/csrc/ba_candidate_cost.cu) against its plain version
+    (ops.ba_candidate_cost.candidate_cost_plain, the back-substitution,
+    adds and robust cost solve_lm evaluated before it) on a real LM step
+    at the BA cell's widths (64 cameras, P = 16,384 - 65,536 points x V =
+    16, 41 % kept, a tenth of the points frozen, Huber delta 1 px).  f32:
+    candidate points within twice the f32 plain version's error against
+    the plain version in f64 and 1e-6 of their largest entry, the cost
+    within twice its relative error and 1e-6; poses and models bit for bit
+    the plain version's; on `exact_cost_problem` (every slot's term
+    exact) the cost alone no farther from the exact cost than the plain
+    f32 sum.  f64 (P = 16,384): within 1e-12 of the plain version.
+    Bit-equal over 3 launches.  Timed (kernel: device time in a CUDA
+    graph and calls back to back; the plain version: calls) beside the
+    bound.  Returns the table row: the middle shape, every shape
+    listed."""
+    import torch
+    from metricsfm_tpu_torch.ba import lm
+    from metricsfm_tpu_torch.ops import ba_candidate_cost as cc
+
+    cfg = lm.LMConfig(huber_delta=1.0)
+
+    def args(p):
+        return (p.poses, p.intrs, p.points, p.cam_model, p.track_cam,
+                p.track_uv, p.track_weight, p.track_mask)
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    cases = []
+    for n_pts in shapes:
+        prob = linearize_problem("cuda", n_pts)
+        g = torch.Generator(device="cuda").manual_seed(n_pts)
+        prob = prob._replace(point_mut=(torch.rand(
+            n_pts, generator=g, device="cuda") >= 0.1).to(prob.points.dtype))
+        d_cam, aux = lm._camera_step(prob, lam, cfg, priors=False)
+        step = lm._step(prob, d_cam, aux)
+        p64 = prob._replace(**{k: f64(getattr(prob, k))
+                               for k in prob._fields})
+        s64 = cc.Step(*(f64(t) for t in step))
+        got = [cc.candidate_cost(*args(prob), 1.0, step) for _ in range(3)]
+        plain = cc.candidate_cost_plain(*args(prob), 1.0, step)
+        truth = cc.candidate_cost_plain(*args(p64), 1.0, s64)
+        scale = float(truth[2].abs().max())
+        tc = float(truth[3])
+        case = {"points": n_pts, "slots": prob.track_mask.numel(),
+                "kept": int(prob.track_mask.sum()),
+                "bit_equal_repeats": all(
+                    torch.equal(a, b) for g in got[1:]
+                    for a, b in zip(g, got[0])),
+                "cameras_equal_plain": torch.equal(got[0][0], plain[0])
+                and torch.equal(got[0][1], plain[1]),
+                "points_rel_err": float(
+                    (got[0][2].double() - truth[2]).abs().max()) / scale,
+                "points_plain_rel_err": float(
+                    (plain[2].double() - truth[2]).abs().max()) / scale,
+                "cost_rel_err": abs(float(got[0][3]) - tc) / tc,
+                "cost_plain_rel_err": abs(float(plain[3]) - tc) / tc}
+        ex = exact_cost_problem("cuda", n_pts, torch.float32)
+        exact = float(cc.candidate_cost_plain(
+            *args(ex._replace(**{k: f64(getattr(ex, k))
+                                 for k in ex._fields})), 10.0)[3])
+        case["exact_cost_err"] = abs(
+            float(cc.candidate_cost(*args(ex), 10.0)[3]) - exact) / exact
+        case["exact_cost_plain_err"] = abs(
+            float(cc.candidate_cost_plain(*args(ex), 10.0)[3]) - exact) / exact
+        for name in ("points", "cost"):
+            if case[f"{name}_rel_err"] > \
+                    2 * case[f"{name}_plain_rel_err"] + 1e-6:
+                raise AssertionError(f"candidate_cost {n_pts} points, "
+                                     f"{name}: {case}")
+        if case["exact_cost_err"] > case["exact_cost_plain_err"]:
+            raise AssertionError(f"candidate_cost {n_pts} points, exact "
+                                 f"cost: {case}")
+        del plain, truth, got, ex
+        if n_pts == shapes[0]:
+            a = cc.candidate_cost(*args(p64), 1.0, s64)
+            b = cc.candidate_cost_plain(*args(p64), 1.0, s64)
+            case["f64_rel_err"] = max(
+                float((a[2] - b[2]).abs().max() / b[2].abs().max()),
+                abs(float(a[3]) - float(b[3])) / float(b[3]))
+            if case["f64_rel_err"] > 1e-12:
+                raise AssertionError(f"candidate_cost f64: {case}")
+            del a, b
+        del p64, s64
+        if not (case["bit_equal_repeats"] and case["cameras_equal_plain"]):
+            raise AssertionError(f"candidate_cost {n_pts} points: {case}")
+        case["ms"] = graph_time_ms(
+            lambda: cc.candidate_cost(*args(prob), 1.0, step))
+        case["call_ms"] = cuda_time_ms(
+            lambda: cc.candidate_cost(*args(prob), 1.0, step))
+        case["plain_ms"] = cuda_time_ms(
+            lambda: cc.candidate_cost_plain(*args(prob), 1.0, step), reps=5,
+            warmup=1)
+        case.update(candidate_cost_bound(prob))
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        print(f"  candidate_cost {n_pts} x 16 slots ({case['kept']} kept): "
+              f"kernel {case['ms']:.4f} ms device, {case['call_ms']:.4f} ms "
+              f"a call; plain {case['plain_ms']:.3f} ms; {bound_text(case)},"
+              f" {100 * case['share_of_bound']:.1f} %; points error "
+              f"{case['points_rel_err']:.3e} (plain f32 "
+              f"{case['points_plain_rel_err']:.3e}), cost "
+              f"{case['cost_rel_err']:.3e} (plain f32 "
+              f"{case['cost_plain_rel_err']:.3e}), exact cost "
+              f"{case['exact_cost_err']:.3e} (plain f32 "
+              f"{case['exact_cost_plain_err']:.3e})", flush=True)
+        cases.append(case)
+    row = cases[len(cases) // 2]
+    return {"name": "ba_candidate_cost", "route": "cuda",
+            "source": "metricsfm_tpu_torch/ops/csrc/ba_candidate_cost.cu",
+            "replaces": "none: a port-only kernel (backsub_points, the "
+                        "candidate's adds and problem_cost in ba/lm.py)",
+            "max_rel_err": max(c["points_rel_err"] for c in cases),
             "ms": row["ms"], "call_ms": row["call_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -4406,7 +4597,8 @@ def repro_phase(mesh_stats, web, device="cuda", max_kp=4096, D=128,
 
 
 def build_phase(names=("knn2", "knn2_int8", "sgm_census", "sgm_aggregate",
-                       "segsum", "ba_linearize", "ba_reduce_slots")):
+                       "segsum", "ba_linearize", "ba_reduce_slots",
+                       "ba_candidate_cost")):
     """Build every kernel source at once (one nvcc process each)."""
     from concurrent.futures import ThreadPoolExecutor
     from metricsfm_tpu_torch.ops import cuda_build
@@ -4456,7 +4648,8 @@ def main(argv=None):
         build_phase()
     with phase("3 kernels vs plain"):
         rows = [knn2_phase(), knn2_int8_phase()] + sgm_phase() \
-            + [linearize_phase(), reduce_slots_phase()]
+            + [linearize_phase(), reduce_slots_phase(),
+               candidate_cost_phase()]
     if args.skip_e2e:
         return 0
     with phase("4 main path: cli sfm"):
@@ -4523,6 +4716,9 @@ def main(argv=None):
         launches["ba_reduce_slots"] = sum(REDUCE_SLOTS_LAUNCHES.values())
         print(f"  ba_reduce_slots launches by path: {REDUCE_SLOTS_LAUNCHES}",
               flush=True)
+        launches["ba_candidate_cost"] = sum(CANDIDATE_COST_LAUNCHES.values())
+        print(f"  ba_candidate_cost launches by path: "
+              f"{CANDIDATE_COST_LAUNCHES}", flush=True)
         for row in rows:
             row["launches"] = launches[row["name"]]
             if row["name"] == "knn2_int8":   # its quantize pass, same row
@@ -4558,6 +4754,7 @@ def main(argv=None):
                 "street_rematch": {k: v for k, v in rematch_stats.items()
                                    if k != "stages"},
                 "reduce_slots_launches": REDUCE_SLOTS_LAUNCHES,
+                "candidate_cost_launches": CANDIDATE_COST_LAUNCHES,
                 "aux": aux_stats, "mesh": mesh_stats,
                 "repro": repro_stats}), flush=True)
         print(json.dumps({"kernels": rows}), flush=True)

@@ -27,7 +27,11 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
 * Mutability masks freeze dofs by zeroing their rows/cols and pinning the
   diagonal (optimizer.cc:86-125).
 * The LM loop is a Python loop with accept/reject damping and one host
-  read of the candidate cost per iteration.
+  read of the candidate cost per iteration.  The candidate (the points'
+  back-substitution, the step's adds) and its robust reprojection cost
+  come from one call of ``ops.ba_candidate_cost.candidate_cost`` (its
+  kernel on the card, which adds the cost in a fixed order; its plain
+  composition on the CPU), and so does the cost that opens each solve.
 * cg_iterations > 0 solves the reduced camera system matrix-free by
   block-Jacobi PCG instead (used from sfm.th_cg_cameras cameras up): no
   (D, D) matrix and no O(P*C) factor, only O(P*V) per-track tensors.  The
@@ -42,8 +46,8 @@ Huber + autodiff functors, SfM/src/optimizer.cc:44-135):
   ba/problem.py) add their Gauss-Newton blocks to the reduced system: to
   S in the dense path, to the matvec and the block-Jacobi preconditioner
   in the PCG path.  Their Jacobians come from ``torch.func.jacfwd``.  A
-  solve whose prior weights are all zero skips them (one host check per
-  solve).
+  solve whose prior weights are all zero skips them, in the system and in
+  the cost (one host check per solve; their cost is then exactly +0).
 * Track sharding (parallel/sharded_ba): the functions take an optional
   `reduce`, the sum over the ranks of a track-sharded problem (None: the
   identity, and the single-device path exactly as without it).  The sums
@@ -65,7 +69,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import jacfwd, vmap
 
-from ..ops import ba_linearize, ba_reduce_slots, projection
+from ..ops import (ba_candidate_cost, ba_linearize, ba_reduce_slots,
+                   projection)
 from ..ops.ba_reduce_slots import inv3x3
 from ..ops.segsum import SegmentPlan, make_plan, segment_sum
 from ..utils.tracing import span
@@ -151,16 +156,10 @@ def _aux(fn):
     return f
 
 
-def _gathered(problem: BAProblem):
-    cam = problem.track_cam
-    poses = problem.poses[cam]                              # (P,V,6)
-    intrs = problem.intrs[problem.cam_model[cam]]           # (P,V,3)
-    pts = problem.points[:, None, :].expand(-1, problem.max_views, -1)
-    return poses, intrs, pts
-
-
-# the JAX package's ba/lm name; it lives with the plain linearize
+# the JAX package's ba/lm names; they live with the plain versions of the
+# kernels that evaluate them
 robust_weights = ba_linearize.robust_weights
+robust_cost = ba_candidate_cost.robust_cost
 
 
 def _linearize(problem: BAProblem, cfg: LMConfig):
@@ -193,20 +192,13 @@ def _host(x, name: str, to=float):
         return to(x)
 
 
-def robust_cost(r, mask, delta):
-    """Total Huber cost, 0.5 * sum rho(|r|^2) over valid observations."""
-    s = torch.sum(r * r, dim=-1)
-    rho = torch.where(s <= delta * delta, s,
-                      2.0 * delta * torch.sqrt(torch.clamp(s, min=1e-20))
-                      - delta * delta)
-    return 0.5 * torch.sum(rho * mask.to(r.dtype))
-
-
 def compute_residuals(problem: BAProblem):
-    poses, intrs, pts = _gathered(problem)
-    r = projection.reprojection_residual(poses, intrs, pts, problem.track_uv)
-    w = torch.sqrt(problem.track_weight)[:, None, None]
-    return r * w * problem.track_mask.to(r.dtype)[:, :, None]
+    """(P, V, 2) reprojection residuals scaled by sqrt(track_weight) and
+    the mask (ops.ba_candidate_cost.residuals)."""
+    return ba_candidate_cost.residuals(
+        problem.poses, problem.intrs, problem.points, problem.cam_model,
+        problem.track_cam, problem.track_uv, problem.track_weight,
+        problem.track_mask)
 
 
 def _gps_residual_one(pose, gpos, gw):
@@ -270,18 +262,35 @@ def _reduce_cat(reduce, *tensors):
     return out
 
 
+def _cost(problem: BAProblem, huber_delta: float, reduce=None,
+          priors: bool = True, step: Optional[ba_candidate_cost.Step] = None):
+    """(candidate, cost) of `step` (the problem itself and its own cost
+    without one): the robust reprojection cost of
+    ops.ba_candidate_cost.candidate_cost, summed over the ranks by
+    `reduce`, plus the camera-indexed prior costs, added once after the
+    sum when `priors`.  With every prior weight zero those are exactly
+    +0, so `priors` False changes no bit of a cost."""
+    poses, intrs, points, cost = ba_candidate_cost.candidate_cost(
+        problem.poses, problem.intrs, problem.points, problem.cam_model,
+        problem.track_cam, problem.track_uv, problem.track_weight,
+        problem.track_mask, huber_delta, step)
+    if step is not None:
+        problem = problem._replace(poses=poses, intrs=intrs, points=points)
+    if reduce is not None:
+        cost = reduce(cost)
+    if priors:
+        rg = gps_residuals(problem)
+        rp = pose_prior_residuals(problem)
+        rt = gps_triple_residuals(problem)
+        cost = (cost + 0.5 * torch.sum(rg * rg) + 0.5 * torch.sum(rp * rp)
+                + 0.5 * torch.sum(rt * rt))
+    return problem, cost
+
+
 def problem_cost(problem: BAProblem, huber_delta: float, reduce=None):
     """Robust reprojection cost (summed over the ranks by `reduce`) plus the
     camera-indexed prior costs, added once after the sum."""
-    reproj = robust_cost(compute_residuals(problem), problem.track_mask,
-                         huber_delta)
-    if reduce is not None:
-        reproj = reduce(reproj)
-    rg = gps_residuals(problem)
-    rp = pose_prior_residuals(problem)
-    rt = gps_triple_residuals(problem)
-    return (reproj + 0.5 * torch.sum(rg * rg) + 0.5 * torch.sum(rp * rp)
-            + 0.5 * torch.sum(rt * rt))
+    return _cost(problem, huber_delta, reduce)[1]
 
 
 def has_priors(problem: BAProblem) -> bool:
@@ -423,15 +432,18 @@ def solve_reduced(S, rhs, problem: BAProblem, lam, cfg: LMConfig,
 
 
 def backsub_points(aux, d_cam, problem: BAProblem):
-    """Point back-substitution: d_pt = -Hpp_inv (g_pt + E^T d_cam)."""
-    C, M = problem.n_cameras, problem.n_models
-    dp = d_cam[:6 * C].reshape(C, 6)
-    di = d_cam[6 * C:].reshape(M, 3)
-    d9 = torch.cat([dp, di[problem.cam_model]], dim=1)          # (C,9)
-    dc = d9[problem.track_cam]                                  # (P,V,9)
-    Et = torch.einsum("pvik,pvi->pk", aux["W"], dc)
-    d_pt = -torch.einsum("pij,pj->pi", aux["Hpp_inv"], aux["g_pt"] + Et)
-    return d_pt * problem.point_mut[:, None]
+    """Point back-substitution: d_pt = -Hpp_inv (g_pt + E^T d_cam)
+    (ops.ba_candidate_cost.backsub)."""
+    return ba_candidate_cost.backsub(aux["W"], aux["Hpp_inv"], aux["g_pt"],
+                                     d_cam, problem.cam_model,
+                                     problem.track_cam, problem.point_mut)
+
+
+def _step(problem: BAProblem, d_cam, aux) -> ba_candidate_cost.Step:
+    """The LM step d_cam with what back-substitution reads."""
+    return ba_candidate_cost.Step(d_cam, aux["W"], aux["Hpp_inv"],
+                                  aux["g_pt"], problem.pose_mut,
+                                  problem.intr_mut, problem.point_mut)
 
 
 # ---------------------------------------------------------------------------
@@ -661,17 +673,18 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig(), reduce=None):
     Spans (utils/tracing): ba/lm/solve holds the call; ba/lm/plans the
     plans; ba/lm/iteration each LM iteration, which holds ba/lm/linearize,
     ba/lm/reduce, ba/lm/camera_solve and ba/lm/step (back-substitution,
-    the candidate and its cost) in that order.  Each blocking host read
-    is alone in a ba/lm/read.* or segsum/read.* span.
+    the candidate and its cost: one call of candidate_cost, then the
+    prior costs when the solve has priors) in that order.  Each blocking
+    host read is alone in a ba/lm/read.* or segsum/read.* span.
     """
     with span("ba/lm/solve"):
-        cost = _host(problem_cost(problem, cfg.huber_delta, reduce),
+        priors = has_priors(problem)
+        cost = _host(_cost(problem, cfg.huber_delta, reduce, priors)[1],
                      "ba/lm/read.initial_cost")
         initial_cost = cost
         lam = float(cfg.init_lambda)
         forcing = cfg.cg_forcing and cfg.cg_iterations > 0
         eta = cfg.cg_eta0 if forcing else cfg.cg_tol
-        priors = has_priors(problem)
         # the index sets are the same every iteration: one set of plans
         with span("ba/lm/plans"):
             plans = make_plans(problem, cfg, priors)
@@ -683,12 +696,9 @@ def solve_lm(problem: BAProblem, cfg: LMConfig = LMConfig(), reduce=None):
                     problem, lam, cfg, tol_rel=eta if forcing else None,
                     priors=priors, reduce=reduce, plans=plans)
                 with span("ba/lm/step"):
-                    d_pose, d_intr, d_pt = _split_step(problem, d_cam, aux)
-                    cand = problem._replace(poses=problem.poses + d_pose,
-                                            intrs=problem.intrs + d_intr,
-                                            points=problem.points + d_pt)
-                    new_cost = _host(problem_cost(cand, cfg.huber_delta,
-                                                  reduce), "ba/lm/read.cost")
+                    cand, new_cost = _cost(problem, cfg.huber_delta, reduce,
+                                           priors, _step(problem, d_cam, aux))
+                    new_cost = _host(new_cost, "ba/lm/read.cost")
                 it += 1
                 accept = new_cost < cost and math.isfinite(new_cost)
                 if accept:
